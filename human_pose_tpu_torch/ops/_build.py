@@ -1,0 +1,106 @@
+"""Build the CUDA kernels in ``csrc/`` with ``nvcc`` at first use and load
+them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exports plain C launch functions (no PyTorch headers,
+so a build takes seconds) and is compiled on its own into
+``build/lib<name>-<hash>.so``; the hash covers the source and the flags, so
+an edited source is rebuilt and a stale library is never loaded. Builds of
+several kernels run in parallel (``build_kernels``).
+
+The decode kernels are compiled without fast math and with ``--fmad=false``:
+a fused multiply-add in the squared-distance sum, or an approximate
+``sqrtf``, can move a tag distance across a ``.5`` rounding boundary and flip
+an assignment against the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+)
+
+# ctypes signatures of each library's launch function: every pointer and the
+# stream as c_void_p (a bare int would be cut to 32 bits)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "match_by_tag": ("launch_match_by_tag", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]),
+    "refine_argmax": ("launch_refine_argmax", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+build_logs: dict[str, str] = {}  # name -> nvcc/ptxas output of this process's builds
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME and /usr/local/cuda)")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD / f"lib{name}-{digest}.so"
+
+
+def build_kernels(names=tuple(SIGNATURES)) -> dict[str, float]:
+    """Compile every library of ``names`` that is not built yet, one ``nvcc``
+    process per source, all started together. Returns the wall seconds each
+    build took (0.0 when the library was already there); raises with the
+    compiler's output when a build fails."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    seconds = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        build_logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def load_kernel(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_kernels((name,))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
