@@ -4,20 +4,31 @@
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
-published eval point (det_thr 0.05, tag_thr 0.5, 30 people) — on seeded
-random weights and seeded synthetic scenes. Phases, any failure exits
-non-zero:
+published eval point (det_thr 0.05, tag_thr 0.5, 30 people) — and the fused
+decode front end (``decode_batch_fused``) on seeded random weights and
+seeded synthetic scenes. Phases, any failure exits non-zero:
 
 1. device: card name and power limit, TF32 switches
-2. build: both CUDA kernels from ``human_pose_tpu_torch/csrc`` (parallel nvcc)
+2. build: all five CUDA kernels from ``human_pose_tpu_torch/csrc`` (one
+   nvcc per source, in parallel), with ptxas registers and spills
 3. kernel parity at main-path shapes, CUDA kernel vs its plain version, both
-   on the card
+   on the card: the dense refine and the grouping; the fused aggregate, the
+   phase refine (E=1, E=2, a tie case) and the fused BasicBlock at the four
+   W32 branch shapes (float32, bfloat16)
 4. main path (forward + decode) and the dense-scene decode, each with the
    launch counters zeroed just before and exactly one launch per kernel
    required; output checks, card-vs-CPU decode
-5. timing: forward, decode and img/s (CUDA events and host wall clock), a
+5. the fused path: ``decode_batch_fused`` on the forward's outputs and on a
+   dense synthetic scene at the stage resolutions, counted the same way
+   (one launch each of the fused aggregate, the grouping and the phase
+   refine, none of the dense refine); card == CPU, fused == dense on the
+   scene, the agreement on the forward's outputs printed; the per-image
+   grouping entry on the scene's candidates; the W32 model's BasicBlocks
+   folded and run through the fused block
+6. timing: forward, decode and img/s (CUDA events and host wall clock), a
    per-kernel profiler breakdown of one forward+decode with the device's
-   idle share, each kernel vs its plain version and its bound
+   idle share, fused vs dense decode, each kernel vs its plain version, its
+   bound and, where one exists, a library call
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
@@ -39,9 +50,13 @@ DET_THR, TAG_THR = 0.05, 0.5
 N_PERSONS = 35  # > M: the person cap truncates
 SEED = 0
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s and fp32 CUDA-core FLOP/s
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 CUDA-core FLOP/s and
+# bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_BF16_S = 989e12
+# HRNet-W32 branch shapes of a 512x512 input: (channels, height = width)
+W32_BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))
 
 # file:line of the TPU kernel each CUDA kernel replaces, and its function
 REPLACES = {
@@ -49,10 +64,21 @@ REPLACES = {
                      "match_by_tag_pallas_batched (_match_kernel_batched :273)"),
     "refine_argmax": ("human_pose_tpu/ops/pallas_decode.py:127",
                       "refine_argmax_batch (_refine_kernel :36)"),
+    "match_by_tag_per_image": ("human_pose_tpu/ops/pallas_match.py:526",
+                               "match_by_tag_pallas (_match_kernel :48)"),
+    "fused_aggregate": ("human_pose_tpu/ops/pallas_aggregate.py:181",
+                        "fused_aggregate (_aggregate_kernel :136)"),
+    "refine_argmax_phase": ("human_pose_tpu/ops/pallas_aggregate.py:289",
+                            "refine_argmax_phase_batch (_refine_phase_kernel :231)"),
+    "fused_basic_block": ("human_pose_tpu/ops/pallas_conv.py:97", "fused_basic_block (_kernel :39)"),
 }
 SOURCES = {
     "match_by_tag": "human_pose_tpu_torch/csrc/match_by_tag.cu",
     "refine_argmax": "human_pose_tpu_torch/csrc/refine_argmax.cu",
+    "match_by_tag_per_image": "human_pose_tpu_torch/csrc/match_by_tag.cu",
+    "fused_aggregate": "human_pose_tpu_torch/csrc/fused_aggregate.cu",
+    "refine_argmax_phase": "human_pose_tpu_torch/csrc/refine_argmax_phase.cu",
+    "fused_basic_block": "human_pose_tpu_torch/csrc/fused_basic_block.cu",
 }
 
 
@@ -141,7 +167,9 @@ def warm_up(fn, seconds: float) -> int:
 # device-kernel name fragment -> group, first match wins
 KERNEL_GROUPS = (
     ("nchwToNhwc", "conv layout transposes"), ("nhwcToNchw", "conv layout transposes"),
-    ("match_kernel", "grouping kernel"), ("refine", "refine kernel"),
+    ("match_kernel", "grouping kernel"), ("aggregate_kernel", "fused aggregate kernel"),
+    ("refine_phase", "phase refine kernel"), ("refine", "refine kernel"),
+    ("basic_block", "fused BasicBlock kernel"),
     ("batch_norm", "batch norm"), ("max_pool", "NMS max-pool"),
     ("xmma", "convolutions"), ("cutlass", "convolutions"), ("conv", "convolutions"),
     ("gemm", "convolutions"), ("copy", "copies / casts"), ("add", "adds"),
@@ -185,29 +213,38 @@ def profile_breakdown(fn, top: int = 12):
     return busy_ms, groups
 
 
-def record_kernel_inputs(fn) -> dict:
-    """Run ``fn`` once with the decode's two kernel entry points wrapped so
-    that the positional arguments of their last call are kept: the exact
-    inputs the path gives each kernel. Restores the entry points after."""
-    from human_pose_tpu_torch.ops import grouping
+# kernel name -> (module of the decode that calls its entry point, attribute)
+ENTRY_POINTS = {
+    "match_by_tag": ("grouping", "match_by_tag_batched"),
+    "refine_argmax": ("grouping", "refine_argmax_batch"),
+    "fused_aggregate": ("decode", "fused_aggregate"),
+    "refine_argmax_phase": ("grouping", "refine_argmax_phase_batch"),
+}
 
+
+def record_kernel_inputs(fn) -> dict:
+    """Run ``fn`` once with the decode's kernel entry points wrapped so that
+    the positional arguments of their last call are kept: the exact inputs
+    the path gives each kernel. Restores the entry points after."""
+    from human_pose_tpu_torch.ops import decode, grouping
+
+    modules = {"decode": decode, "grouping": grouping}
     seen = {}
-    names = {"match_by_tag": "match_by_tag_batched", "refine_argmax": "refine_argmax_batch"}
-    originals = {key: getattr(grouping, attr) for key, attr in names.items()}
+    originals = {key: getattr(modules[mod], attr) for key, (mod, attr) in ENTRY_POINTS.items()}
 
     def recorder(key):
-        def call(*args):
+        def call(*args, **kwargs):
             seen[key] = args
-            return originals[key](*args)
+            return originals[key](*args, **kwargs)
         return call
 
     try:
-        for key, attr in names.items():
-            setattr(grouping, attr, recorder(key))
+        for key, (mod, attr) in ENTRY_POINTS.items():
+            setattr(modules[mod], attr, recorder(key))
         fn()
     finally:
-        for key, attr in names.items():
-            setattr(grouping, attr, originals[key])
+        for key, (mod, attr) in ENTRY_POINTS.items():
+            setattr(modules[mod], attr, originals[key])
     return seen
 
 
@@ -239,6 +276,13 @@ def match_inputs(kpts, tags, device):
     return _candidates(t_k, c_k, s_k)[:, list(order)].contiguous(), order
 
 
+def bound(nbytes: float, ops: float, peak_ops_s: float = PEAK_FP32_S):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops_s * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
 def refine_bound(hm, tags, prev, counts):
     """(bound_ms, bound_by) of the refine argmax for these inputs: maps read
     once, outputs written once; ~5 fp32 operations per (pixel, active
@@ -249,8 +293,7 @@ def refine_bound(hm, tags, prev, counts):
     nbytes = 4 * (hm.numel() + tags.numel() + prev.numel() + counts.numel() + b * k * p)
     active = int(counts.clamp(0, p).sum())
     ops = k * hw * active * (5 if e == 1 else 3 * e + 4)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
-    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+    return bound(nbytes, ops)
 
 
 def match_bound(cand, num_persons):
@@ -262,8 +305,38 @@ def match_bound(cand, num_persons):
     b, k, m, f = cand.shape
     nbytes = 4 * (cand.numel() + k + b * num_persons * k * f + b)
     ops = int((cand[..., 2] > DET_THR).sum()) * max(m, num_persons) * 4
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
-    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+    return bound(nbytes, ops)
+
+
+def aggregate_bound(q, h2):
+    """(bound_ms, bound_by) of the fused aggregate: the two stages read once,
+    two full-resolution phase maps and the row maxima written once; ~19 fp32
+    operations per full-resolution pixel (two lerps of 3; the
+    half-resolution lerps and average, 8 per half-resolution pixel = 2; a
+    4+4 max NMS, its compare and select = 10; the row maximum 1)."""
+    b, k, h4, w4 = q.shape
+    full = b * k * 16 * h4 * w4
+    return bound(4 * (q.numel() + h2.numel() + 2 * full + b * k * 4 * h4), 19 * full)
+
+
+def refine_phase_bound(avg, tags, prev):
+    """(bound_ms, bound_by) of the phase refine: maps read once, idx and val
+    written once; 3E+4 fp32 operations per (pixel, person), every person
+    (sub, square, add per dim; sqrt, round, sub, compare)."""
+    b, k = avg.shape[:2]
+    e, p = tags.shape[2], prev.shape[1]
+    nbytes = 4 * (avg.numel() + tags.numel() + prev.numel() + 2 * b * k * p)
+    return bound(nbytes, (avg.numel() // (b * k)) * b * k * p * (3 * e + 4))
+
+
+def conv_bound(x):
+    """(bound_ms, bound_by) of a BasicBlock: x read once, the output written
+    once, both float32 weight sets read once; 2 * 9 * C * C FLOP per pixel
+    and conv, at the peak of the input's type (bf16 on tensor cores)."""
+    b, h, w, c = x.shape
+    nbytes = 2 * x.numel() * x.element_size() + 4 * (2 * 9 * c * c + 2 * c)
+    peak = PEAK_FP32_S if x.dtype.itemsize == 4 else PEAK_BF16_S
+    return bound(nbytes, 2 * 2 * 9 * c * c * h * w * b, peak)
 
 
 def phase_parity(dev, rng):
@@ -323,6 +396,151 @@ def phase_parity(dev, rng):
     return errs, scenes
 
 
+def dyadic(a: np.ndarray, bits: int) -> np.ndarray:
+    """``a`` rounded to a 2**-bits grid. Each lerp of a 2x or 4x
+    ``align_corners=False`` upsample adds a few bits, so on such maps every
+    formulation of the resize is exact in float32 and the dense and fused
+    front ends see bit-identical maps."""
+    return (np.round(a * 2.0 ** bits) / 2.0 ** bits).astype(np.float32)
+
+
+def make_stage_scene(rng: np.random.Generator, n: int, h4: int, w4: int,
+                     n_persons: int = N_PERSONS):
+    """A dense scene at the model's output resolutions: quarter ``[n, K, h4,
+    w4]`` and half ``[n, K, 2h4, 2w4]`` heatmaps (low noise, one Gaussian per
+    present joint, centred off the pixel grid so that the upsampled peak is
+    unique) and quarter-resolution tags ``[n, K, 1, h4, w4]`` (each person's
+    own tag on a 3x3 patch, jittered per pixel), on dyadic grids (heatmaps
+    2**-12, tags 2**-10)."""
+    q = rng.random((n, K, h4, w4), dtype=np.float32) * np.float32(0.02)
+    h2 = rng.random((n, K, 2 * h4, 2 * w4), dtype=np.float32) * np.float32(0.02)
+    tags = rng.standard_normal((n, K, 1, h4, w4), dtype=np.float32) * np.float32(0.05)
+    r4, r2 = 3, 6  # window radii: sigma 1 at 1/4, sigma 2 at 1/2
+    y4, x4 = np.mgrid[-r4:r4 + 1, -r4:r4 + 1]
+    y2, x2 = np.mgrid[-r2:r2 + 1, -r2:r2 + 1]
+    for i in range(n):
+        for p in range(n_persons):
+            for k in range(K):
+                if rng.random() < 0.15:
+                    continue
+                cy, cx = int(rng.integers(r4, h4 - r4)), int(rng.integers(r4, w4 - r4))
+                oy, ox = rng.uniform(-0.4, 0.4, 2)
+                amp = 0.5 + 0.5 * rng.random()
+                win = q[i, k, cy - r4:cy + r4 + 1, cx - r4:cx + r4 + 1]
+                np.maximum(win, amp * np.exp(-((y4 - oy) ** 2 + (x4 - ox) ** 2) / 2), out=win)
+                # the same centre in half-resolution pixels: 2c + 0.5
+                win = h2[i, k, 2 * cy - r2:2 * cy + r2 + 1, 2 * cx - r2:2 * cx + r2 + 1]
+                np.maximum(win, amp * np.exp(-((y2 - 2 * oy - 0.5) ** 2 + (x2 - 2 * ox - 0.5) ** 2) / 8),
+                           out=win)
+                tags[i, k, 0, cy - 1:cy + 2, cx - 1:cx + 2] = (
+                    np.float32(3.0 * p - 50.0) + rng.standard_normal((3, 3)) * 0.01)
+    return dyadic(q, 12), dyadic(h2, 12), dyadic(tags, 10)
+
+
+def fused_parity(dev, rng, q, h2, tags_lo):
+    """The fused aggregate and the phase refine vs their plain versions at
+    main-path shapes (the stage scene), both on the card: aggregate maps
+    bit-equal and cmax equal; refine idx and val exact at E=1 and E=2 and on
+    a tie case. Returns the largest |kernel - plain| of each."""
+    import torch
+
+    from human_pose_tpu_torch.ops import cuda_aggregate as ca
+
+    got, want = ca.fused_aggregate(q, h2), ca.fused_aggregate_plain(q, h2)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("avg", "sup", "cmax"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"fused aggregate {name} differs from plain: "
+                                 f"max |diff| {float((g - w).abs().max())}")
+    avg = got[0]
+    errs = {"fused_aggregate": 0.0, "refine_argmax_phase": 0.0}
+    for e in (1, 2):
+        tl = tags_lo if e == 1 else torch.cat([tags_lo, tags_lo * 0.5 + 1.0], dim=2).contiguous()
+        base = np.float32(3.0) * rng.integers(0, N_PERSONS, (BATCH, M, 1)) - np.float32(50.0)
+        prev = (np.concatenate([base, base * 0.5 + 1.0], axis=2)[..., :e]
+                + rng.standard_normal((BATCH, M, e)) * 0.3).astype(np.float32)
+        prev = torch.from_numpy(prev).to(dev)
+        gi, gv = ca.refine_argmax_phase_batch(avg, tl, prev)
+        wi, wv = ca.refine_argmax_phase_batch_plain(avg, tl, prev)
+        torch.cuda.synchronize()
+        bad = int((gi != wi).sum()) + int((gv != wv).sum())
+        errs["refine_argmax_phase"] = max(errs["refine_argmax_phase"],
+                                          float((gi - wi).abs().max()), float((gv - wv).abs().max()))
+        log(f"phase refine E={e}: {gi.numel()} (b,k,p) slots, {bad} idx/val mismatches")
+        if bad:
+            raise AssertionError(f"phase refine kernel disagrees with plain on {bad} values (E={e})")
+    idx, val = ca.refine_argmax_phase_batch(torch.ones((2, K, 4, 4, 32, 32), device=dev),
+                                            torch.zeros((2, K, 1, 32, 32), device=dev),
+                                            torch.zeros((2, M, 1), device=dev))
+    if int(idx.abs().max()) != 0 or not bool((val == 1).all()):
+        raise AssertionError("phase refine tie case: first maximum not chosen")
+    log("parity: fused aggregate bit-equal; phase refine exact (E=1,2, tie case)")
+    return errs
+
+
+def block_weights(gen, c: int, dev):
+    """Seeded HWIO weights scaled 1/sqrt(9C) and small biases."""
+    import torch
+
+    w = [torch.randn((3, 3, c, c), generator=gen) / (9 * c) ** 0.5, torch.randn((c,), generator=gen) * 0.1,
+         torch.randn((3, 3, c, c), generator=gen) / (9 * c) ** 0.5, torch.randn((c,), generator=gen) * 0.1]
+    return [t.to(dev) for t in w]
+
+
+def basic_block_parity(dev, gen):
+    """The fused BasicBlock vs its plain version at the four W32 branch
+    shapes, batch 24, both on the card: float32 within 1e-4 (TF32 off);
+    bfloat16 within 2**-6 of the output's largest magnitude (4 bf16 ulps:
+    the kernel and cuDNN sum in different orders, so an intermediate value
+    at a bf16 rounding boundary can round either way, and the output is
+    rounded again). Returns one record per (shape, dtype) with its inputs."""
+    import torch
+
+    from human_pose_tpu_torch.ops import cuda_conv
+
+    rows = []
+    for c, hw in W32_BRANCHES:
+        x = torch.rand((BATCH, hw, hw, c), generator=gen).to(dev)  # post-ReLU activations
+        weights = block_weights(gen, c, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xi = x.to(dtype)
+            got = cuda_conv.fused_basic_block(xi, *weights).float()
+            want = cuda_conv.fused_basic_block_plain(xi, *weights).float()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * float(want.abs().max())
+            log(f"fused block C={c} {hw}^2 {str(dtype)[6:]}: max |kernel - plain| {err:.3g} (tol {tol:.3g})")
+            if not err <= tol:
+                raise AssertionError(f"fused block C={c} {hw}^2 {dtype}: {err} > {tol}")
+            rows.append({"c": c, "hw": hw, "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
+                         "inputs": (xi, *weights)})
+    return rows
+
+
+def w32_blocks(model, gen):
+    """``(block, input size)`` for copies of the first BasicBlock of every
+    branch of the first HR block of stages 2-4 of ``model`` (9 blocks,
+    C=32..256), with seeded BN statistics so the fold is not near the
+    identity."""
+    import copy
+
+    import torch
+
+    blocks = []
+    for stage in model.backbone.stages[1:]:
+        for branch, units in enumerate(stage.blocks[0].scales_blocks):
+            blk = copy.deepcopy(units[0]).eval()
+            with torch.no_grad():
+                for bn in (blk.bn1, blk.bn2):
+                    c = bn.num_features
+                    bn.weight.copy_(1.0 + 0.1 * torch.randn(c, generator=gen))
+                    bn.bias.copy_(0.1 * torch.randn(c, generator=gen))
+                    bn.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                    bn.running_var.copy_(0.5 + torch.rand(c, generator=gen))
+            blocks.append((blk, (SIZE // 4) >> branch))
+    return blocks
+
+
 def dense_stage_inputs(kpts, tags, dev):
     """Model-output-shaped decode inputs from a full-resolution scene: two
     heatmap stages and one tag map at 512^2, so the bilinear resizes are
@@ -336,6 +554,7 @@ def dense_stage_inputs(kpts, tags, dev):
 
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -344,7 +563,10 @@ def main() -> int:
 
     import human_pose_tpu_torch
     from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
-    from human_pose_tpu_torch.ops import _build, cuda_decode, cuda_match, decode_batch
+    from human_pose_tpu_torch.ops import (
+        _build, cuda_aggregate, cuda_conv, cuda_decode, cuda_match, decode_batch, decode_batch_fused,
+        fold_basic_block,
+    )
 
     # the kernels must build from this checkout's sources, not an installed copy
     here = Path(__file__).resolve().parent
@@ -364,6 +586,7 @@ def main() -> int:
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
+    gen = torch.Generator().manual_seed(SEED + 1)
 
     # 2. build
     t0 = time.perf_counter()
@@ -376,6 +599,12 @@ def main() -> int:
 
     # 3. kernel parity
     errs, scenes = phase_parity(dev, rng)
+    log(f"stage scene bs{BATCH}: {SIZE // 4}^2 and {SIZE // 2}^2 heatmaps, {SIZE // 4}^2 tags, "
+        f"{N_PERSONS} persons ...")
+    q_s, h2_s, t_s = [torch.from_numpy(a).to(dev)
+                      for a in make_stage_scene(rng, BATCH, SIZE // 4, SIZE // 4)]
+    errs.update(fused_parity(dev, rng, q_s, h2_s, t_s))
+    block_rows = basic_block_parity(dev, gen)
 
     # 4. main path
     model = HigherHRNet(num_kpts=K, C=32, device=dev)
@@ -383,38 +612,56 @@ def main() -> int:
     model.eval()
     images = torch.from_numpy(rng.standard_normal((BATCH, 3, SIZE, SIZE), dtype=np.float32)).to(dev)
     stages_d, tags_d = dense_stage_inputs(*scenes[1], dev)
+    stages_s, tags_s = [q_s, h2_s], [t_s[:, :, 0]]
 
     def forward(x):
         with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
             return model(x)
 
+    def dense(stages, tags_list):
+        return decode_batch(stages, tags_list, (SIZE, SIZE), max_num_people=M,
+                            det_thr=DET_THR, tag_thr=TAG_THR)
+
+    def fused(stages, tags_list):
+        return decode_batch_fused(stages, tags_list, (SIZE, SIZE), max_num_people=M,
+                                  det_thr=DET_THR, tag_thr=TAG_THR)
+
     def infer(x):
         """The main path: forward, then decode. Returns (hms, tags, decoded)."""
         hms, tags = forward(x)
-        return hms, tags, decode_batch(hms, [tags], (SIZE, SIZE), max_num_people=M,
-                                       det_thr=DET_THR, tag_thr=TAG_THR)
+        return hms, tags, dense(hms, [tags])
 
     def decode_dense():
-        return decode_batch(stages_d, tags_d, (SIZE, SIZE), max_num_people=M,
-                            det_thr=DET_THR, tag_thr=TAG_THR)
+        return dense(stages_d, tags_d)
 
-    def counted(fn, what):
-        """Run ``fn`` with both launch counters zeroed just before; require
-        exactly one launch of each kernel. Returns (fn's result, counts)."""
-        cuda_match.match_by_tag_batched.launches = 0
-        cuda_decode.refine_argmax_batch.launches = 0
+    # every wrapper's launch counter
+    counters = {
+        "match_by_tag": cuda_match.match_by_tag_batched,
+        "refine_argmax": cuda_decode.refine_argmax_batch,
+        "match_by_tag_per_image": cuda_match.match_by_tag_per_image,
+        "fused_aggregate": cuda_aggregate.fused_aggregate,
+        "refine_argmax_phase": cuda_aggregate.refine_argmax_phase_batch,
+        "fused_basic_block": cuda_conv.fused_basic_block,
+    }
+
+    def counted(fn, what, want):
+        """Run ``fn`` with every launch counter zeroed just before; require
+        exactly the launches of ``want`` (and none of any other kernel).
+        Returns (fn's result, counts)."""
+        for wrapper in counters.values():
+            wrapper.launches = 0
         out = fn()
         torch.cuda.synchronize()
-        counts = {"match_by_tag": cuda_match.match_by_tag_batched.launches,
-                  "refine_argmax": cuda_decode.refine_argmax_batch.launches}
+        counts = {key: wrapper.launches for key, wrapper in counters.items()}
         log(f"{what} launches: {counts}")
-        if any(n != 1 for n in counts.values()):
-            raise AssertionError(f"{what}: each kernel must launch exactly once, got {counts}")
+        if counts != {key: want.get(key, 0) for key in counters}:
+            raise AssertionError(f"{what}: launches {counts}, want {want} and no others")
         return out, counts
 
+    dense_want = {"match_by_tag": 1, "refine_argmax": 1}
     (hms, tags, (joints, scores, valid)), launches = counted(
-        lambda: infer(images), "main path (forward + decode)")
-    (dj, ds, dv), launches_dense = counted(decode_dense, "dense-scene decode")
+        lambda: infer(images), "main path (forward + decode)", dense_want)
+    (dj, ds, dv), launches_dense = counted(decode_dense, "dense-scene decode", dense_want)
 
     shapes = [tuple(h.shape) for h in hms] + [tuple(tags.shape)]
     want_shapes = [(BATCH, K, SIZE // 4, SIZE // 4), (BATCH, K, SIZE // 2, SIZE // 2),
@@ -456,66 +703,215 @@ def main() -> int:
     log(f"decode: card == CPU path on 2 dense images ({cv.sum(1).tolist()} persons, "
         "coords within 1e-3)")
 
-    # 5. timing
+    # 5. the fused path, on the forward's outputs and on the stage scene
+    fused_want = {"fused_aggregate": 1, "match_by_tag": 1, "refine_argmax_phase": 1}
+    (fj, fs, fv), launches_fused = counted(lambda: fused(hms, [tags]),
+                                           "fused decode of the forward's outputs", fused_want)
+    (sj, ss, sv), launches_fused_scene = counted(lambda: fused(stages_s, tags_s),
+                                                 "fused decode of the stage scene", fused_want)
+    (rj, rs, rv), _ = counted(lambda: dense(stages_s, tags_s), "dense decode of the stage scene",
+                              dense_want)
+    for name_, t in (("fused joints", fj), ("fused scores", fs), ("scene joints", sj)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite {name_}")
+    if tuple(fj.shape) != (BATCH, M, K, 4) or tuple(fv.shape) != (BATCH, M):
+        raise AssertionError(f"fused decode shapes {tuple(fj.shape)} {tuple(fv.shape)}")
+    # the scene's maps are dyadic, so both front ends see the same values
+    score_err = max(float((ss - rs).abs().max()), float((sj[..., 2] - rj[..., 2]).abs().max()))
+    if not (torch.equal(sv, rv) and torch.equal(sj[..., :2], rj[..., :2]) and score_err <= 1e-5):
+        raise AssertionError(f"stage scene: fused vs dense decode differ (persons "
+                             f"{sv.sum(1).tolist()} vs {rv.sum(1).tolist()}, scores {score_err})")
+    log(f"stage scene: fused == dense decode ({sv.sum(1).tolist()} persons; joints x, y equal; "
+        f"scores within {score_err:.3g})")
+    both = fv & valid
+    persons_differ = int((fv != valid).sum())
+    joints_differ = int(((fj[..., :2] != joints[..., :2]).any(-1) & both[..., None]).sum())
+    log(f"forward outputs: fused vs dense decode: {persons_differ} person slots differ in validity, "
+        f"{joints_differ} of {int(both.sum()) * K} joints of persons valid in both differ in x, y "
+        "(not asserted: the two resize formulations differ by ulps)")
+    for what, stages, tags_list, (gj, gs, gv) in (
+            ("forward outputs", hms, [tags], (fj, fs, fv)), ("stage scene", stages_s, tags_s, (sj, ss, sv))):
+        cj, cs, cv = decode_batch_fused([x[:2].cpu() for x in stages], [t[:2].cpu() for t in tags_list],
+                                        (SIZE, SIZE), max_num_people=M, det_thr=DET_THR, tag_thr=TAG_THR)
+        # joints: the kernels equal their plain versions, so x, y and score are
+        # exact; person scores are means over K summed in another order on
+        # each device: within 1e-6 of their scale
+        joints_equal = torch.equal(gj[:2, ..., :3].cpu(), cj[..., :3])
+        rel = float((gs[:2].cpu() - cs).abs().max() / cs.abs().max().clamp(min=1.0))
+        if not (torch.equal(gv[:2].cpu(), cv) and joints_equal and rel <= 1e-6):
+            raise AssertionError(f"{what}: fused decode card vs CPU: persons {gv[:2].sum(1).tolist()} "
+                                 f"vs {cv.sum(1).tolist()}, joints equal {joints_equal}, "
+                                 f"person scores rel {rel}")
+        log(f"{what}: fused decode card == CPU path on 2 images ({cv.sum(1).tolist()} persons, "
+            f"joint x, y, score equal, person scores within {rel:.3g} relative; largest person "
+            f"score {float(cs.abs().max()):.4g})")
+
+    # the per-image grouping entry on the scene's candidates
+    scene_in = record_kernel_inputs(lambda: fused(stages_s, tags_s))
+    cand_s, _, _, order_s, persons_s = scene_in["match_by_tag"]
+    (pj, pc), launches_per_image = counted(
+        lambda: cuda_match.match_by_tag_per_image(cand_s, DET_THR, TAG_THR, order_s, persons_s),
+        "per-image grouping of the scene's candidates", {"match_by_tag_per_image": 1})
+    bj, bc = cuda_match.match_by_tag_batched(cand_s, DET_THR, TAG_THR, order_s, persons_s)
+    t0 = time.perf_counter()
+    wj, wc = cuda_match.match_by_tag_batched_plain(cand_s, DET_THR, TAG_THR, order_s, persons_s)
+    torch.cuda.synchronize()
+    per_image_plain_ms = (time.perf_counter() - t0) * 1e3
+    errs["match_by_tag_per_image"] = float((pj - wj).abs().max())
+    if not (torch.equal(pj, wj) and torch.equal(pc, wc) and torch.equal(pj, bj) and torch.equal(pc, bc)):
+        raise AssertionError("per-image grouping differs from the plain or the batched version")
+    log(f"per-image grouping == plain (on the card, {per_image_plain_ms / 1e3:.1f}s) == batched; "
+        f"counts {pc.tolist()}")
+
+    # the W32 model's BasicBlocks, folded, through the fused block
+    blocks = w32_blocks(model, gen)
+    block_x = [torch.rand((BATCH, hw, hw, blk.conv1.in_channels), generator=gen).to(dev)
+               for blk, hw in blocks]
+    blocks = [blk for blk, _ in blocks]
+    outs, launches_blocks = counted(
+        lambda: [cuda_conv.fused_basic_block(x, *fold_basic_block(blk)) for blk, x in zip(blocks, block_x)],
+        "W32 BasicBlocks through the fused block", {"fused_basic_block": len(blocks)})
+    fold_err = 0.0
+    with torch.no_grad():
+        for blk, x, out in zip(blocks, block_x, outs):
+            want = blk(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            fold_err = max(fold_err, float((out - want).abs().max()))
+    if fold_err > 1e-4:
+        raise AssertionError(f"folded W32 BasicBlocks: fused block vs eval forward {fold_err}")
+    log(f"folded W32 BasicBlocks ({len(blocks)}, C=32..256): fused block == eval forward "
+        f"within {fold_err:.3g}")
+
+    # 6. timing
     synced_infer = lambda: (infer(images), torch.cuda.synchronize())  # noqa: E731
     log(f"warm-up: {warm_up(synced_infer, 3.0)} forward+decode calls")
     fwd_ms = cuda_ms(lambda: forward(images), iters=10, warmup=2)
-    dec_ms = cuda_ms(lambda: decode_batch(hms, [tags], (SIZE, SIZE), max_num_people=M,
-                                          det_thr=DET_THR, tag_thr=TAG_THR), iters=5, warmup=1)
+    dec_ms = cuda_ms(lambda: dense(hms, [tags]), iters=5, warmup=1)
     dense_ms = cuda_ms(decode_dense, iters=5, warmup=1)
     wall_ms = host_ms(synced_infer, iters=10)
     log(f"timing bs{BATCH}: forward {fwd_ms:.3f} ms, decode {dec_ms:.3f} ms "
         f"(dense scene {dense_ms:.3f} ms), forward+decode {wall_ms:.3f} ms host wall "
         f"-> {BATCH / wall_ms * 1e3:.2f} img/s  [{smi}]")
+    fused_ms = cuda_ms(lambda: fused(hms, [tags]), iters=5, warmup=1)
+    scene_ms = {"fused": cuda_ms(lambda: fused(stages_s, tags_s), iters=5, warmup=1),
+                "dense": cuda_ms(lambda: dense(stages_s, tags_s), iters=5, warmup=1)}
+    log(f"decode bs{BATCH}, forward outputs: fused {fused_ms:.3f} ms vs dense {dec_ms:.3f} ms; "
+        f"stage scene: fused {scene_ms['fused']:.3f} ms vs dense {scene_ms['dense']:.3f} ms  [{smi}]")
     busy_ms, busy_groups = profile_breakdown(lambda: infer(images))
     if busy_ms is None:
         log("profile: the profiler recorded no device time; idle share not measured")
     else:
         log(f"profile of one forward+decode: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
             f"wall (idle share {max(0.0, 1 - busy_ms / wall_ms):.3f})")
+    fused_busy_ms, fused_groups = profile_breakdown(lambda: fused(hms, [tags]))
+    log(f"profile of one fused decode of the forward's outputs: device busy {fused_busy_ms} ms")
 
-    # each kernel on the exact inputs the main path gave it
+    # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
     dense_in = record_kernel_inputs(decode_dense)
+    fused_in = record_kernel_inputs(lambda: fused(hms, [tags]))
+    paths = {"main": launches, "dense_scene": launches_dense, "fused": launches_fused,
+             "fused_scene": launches_fused_scene, "per_image": launches_per_image,
+             "w32_blocks": launches_blocks}
+
+    def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
+        return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
+                "launches": paths[path][key], "path": path,
+                "launches_by_path": {p: c[key] for p, c in paths.items()},
+                "parity": parity, "max_abs_err": errs[key], "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1], "library_ms": library_ms,
+                **extra}
+
     kernels = []
     hm, tg, prev, counts = main_in["refine_argmax"]
-    k_ms = cuda_ms(lambda: cuda_decode.refine_argmax_batch(hm, tg, prev, counts), iters=20)
-    dense_k_ms = cuda_ms(lambda: cuda_decode.refine_argmax_batch(*dense_in["refine_argmax"]), iters=20)
-    p_ms = cuda_ms(lambda: cuda_decode.refine_argmax_batch_plain(hm, tg, prev, counts), iters=2)
-    b_ms, b_by = refine_bound(hm, tg, prev, counts)
-    kernels.append({"name": "refine_argmax", "route": "cuda", "source": SOURCES["refine_argmax"],
-                    "replaces": REPLACES["refine_argmax"][0], "launches": launches["refine_argmax"],
-                    "launches_dense_scene": launches_dense["refine_argmax"],
-                    "parity": "exact idx on p < counts", "max_abs_err": errs["refine_argmax"],
-                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": None, "ms_dense_scene": dense_k_ms,
-                    "shape": f"B{BATCH} K{K} HW{SIZE * SIZE} E{tg.shape[2]} P{M}",
-                    "active_persons": int(counts.sum())})
+    kernels.append(row(
+        "refine_argmax", "main", "exact idx on p < counts",
+        cuda_ms(lambda: cuda_decode.refine_argmax_batch(hm, tg, prev, counts), iters=20),
+        cuda_ms(lambda: cuda_decode.refine_argmax_batch_plain(hm, tg, prev, counts), iters=2),
+        refine_bound(hm, tg, prev, counts), None,
+        ms_dense_scene=cuda_ms(lambda: cuda_decode.refine_argmax_batch(*dense_in["refine_argmax"]), iters=20),
+        shape=f"B{BATCH} K{K} HW{SIZE * SIZE} E{tg.shape[2]} P{M}", active_persons=int(counts.sum())))
     cand, _, _, order, persons = main_in["match_by_tag"]
-    k_ms = cuda_ms(lambda: cuda_match.match_by_tag_batched(cand, DET_THR, TAG_THR, order, persons),
-                   iters=20)
-    dense_k_ms = cuda_ms(lambda: cuda_match.match_by_tag_batched(*dense_in["match_by_tag"]), iters=20)
-    p_ms = host_ms(lambda: (cuda_match.match_by_tag_batched_plain(cand, DET_THR, TAG_THR, order, persons),
-                            torch.cuda.synchronize()))
-    b_ms, b_by = match_bound(cand, persons)
-    kernels.append({"name": "match_by_tag", "route": "cuda", "source": SOURCES["match_by_tag"],
-                    "replaces": REPLACES["match_by_tag"][0], "launches": launches["match_by_tag"],
-                    "launches_dense_scene": launches_dense["match_by_tag"],
-                    "parity": "exact joints and count", "max_abs_err": errs["match_by_tag"],
-                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": None, "ms_dense_scene": dense_k_ms,
-                    "shape": f"B{BATCH} K{K} M{cand.shape[2]} E{cand.shape[3] - 3} P{persons}",
-                    "valid_rows": int((cand[..., 2] > DET_THR).sum())})
+    kernels.append(row(
+        "match_by_tag", "main", "exact joints and count",
+        cuda_ms(lambda: cuda_match.match_by_tag_batched(cand, DET_THR, TAG_THR, order, persons), iters=20),
+        host_ms(lambda: (cuda_match.match_by_tag_batched_plain(cand, DET_THR, TAG_THR, order, persons),
+                         torch.cuda.synchronize())),
+        match_bound(cand, persons), None,
+        ms_dense_scene=cuda_ms(lambda: cuda_match.match_by_tag_batched(*dense_in["match_by_tag"]), iters=20),
+        ms_fused=cuda_ms(lambda: cuda_match.match_by_tag_batched(*fused_in["match_by_tag"]), iters=20),
+        shape=f"B{BATCH} K{K} M{cand.shape[2]} E{cand.shape[3] - 3} P{persons}",
+        valid_rows=int((cand[..., 2] > DET_THR).sum())))
+    kernels.append(row(
+        "match_by_tag_per_image", "per_image", "exact joints and count; equal to match_by_tag",
+        cuda_ms(lambda: cuda_match.match_by_tag_per_image(cand_s, DET_THR, TAG_THR, order_s, persons_s),
+                iters=20),
+        per_image_plain_ms, match_bound(cand_s, persons_s), None,
+        shape=f"B{BATCH} K{K} M{cand_s.shape[2]} E{cand_s.shape[3] - 3} P{persons_s}",
+        valid_rows=int((cand_s[..., 2] > DET_THR).sum())))
+    q_in, h2_in = fused_in["fused_aggregate"]
+    kernels.append(row(
+        "fused_aggregate", "fused", "avg and sup bit-equal, cmax equal",
+        cuda_ms(lambda: cuda_aggregate.fused_aggregate(q_in, h2_in), iters=20),
+        cuda_ms(lambda: cuda_aggregate.fused_aggregate_plain(q_in, h2_in), iters=3),
+        aggregate_bound(q_in, h2_in), None,
+        ms_fused_scene=cuda_ms(lambda: cuda_aggregate.fused_aggregate(q_s, h2_s), iters=20),
+        shape=f"B{BATCH} K{K} H4 {q_in.shape[2]} W4 {q_in.shape[3]}"))
+    avg_in, tl_in, prev_in = fused_in["refine_argmax_phase"]
+    kernels.append(row(
+        "refine_argmax_phase", "fused", "exact idx and val (E=1, E=2, tie case)",
+        cuda_ms(lambda: cuda_aggregate.refine_argmax_phase_batch(avg_in, tl_in, prev_in), iters=10),
+        cuda_ms(lambda: cuda_aggregate.refine_argmax_phase_batch_plain(avg_in, tl_in, prev_in), iters=2),
+        refine_phase_bound(avg_in, tl_in, prev_in), None,
+        ms_fused_scene=cuda_ms(lambda: cuda_aggregate.refine_argmax_phase_batch(
+            *scene_in["refine_argmax_phase"]), iters=10),
+        shape=f"B{BATCH} K{K} H4 {avg_in.shape[4]} W4 {avg_in.shape[5]} E{tl_in.shape[2]} "
+              f"P{prev_in.shape[1]}"))
+    per_shape = []
+    for r in block_rows:
+        x, w1, b1, w2, b2 = r["inputs"]
+        lib_w = [t.to(x.dtype) for t in (w1.permute(3, 2, 0, 1), b1, w2.permute(3, 2, 0, 1), b2)]
+        lib_w[0] = lib_w[0].contiguous(memory_format=torch.channels_last)
+        lib_w[2] = lib_w[2].contiguous(memory_format=torch.channels_last)
+        x_cl = x.permute(0, 3, 1, 2)  # the NHWC tensor as a channels_last NCHW view
+
+        def library(x_cl=x_cl, lib_w=lib_w):  # cuDNN: two conv calls with bias, add, ReLU
+            y = torch.relu(F.conv2d(x_cl, lib_w[0], lib_w[1], padding=1))
+            return torch.relu(F.conv2d(y, lib_w[2], lib_w[3], padding=1) + x_cl)
+
+        b_ms, b_by = conv_bound(x)
+        per_shape.append({
+            "c": r["c"], "hw": r["hw"], "dtype": r["dtype"], "max_abs_err": r["max_abs_err"],
+            "tol": r["tol"], "ms": cuda_ms(lambda: cuda_conv.fused_basic_block(*r["inputs"]), iters=10),
+            "plain_ms": cuda_ms(lambda: cuda_conv.fused_basic_block_plain(*r["inputs"]), iters=5),
+            "library_ms": cuda_ms(library, iters=10), "bound_ms": b_ms, "bound_by": b_by})
+        log(f"fused block C={r['c']} {r['hw']}^2 {r['dtype']}: {per_shape[-1]['ms']:.3f} ms, plain "
+            f"{per_shape[-1]['plain_ms']:.3f}, cuDNN pair {per_shape[-1]['library_ms']:.3f}, bound "
+            f"{b_ms:.4f} ({b_by})")
+    head_row = per_shape[0]  # C=32 at 128^2, float32
+    errs["fused_basic_block"] = max(r["max_abs_err"] for r in per_shape if r["dtype"] == "float32")
+    kernels.append(row(
+        "fused_basic_block", "w32_blocks",
+        "float32 within 1e-4, bfloat16 within 2**-6 of the output scale",
+        head_row["ms"], head_row["plain_ms"], (head_row["bound_ms"], head_row["bound_by"]),
+        head_row["library_ms"], library="cuDNN conv pair with bias, add and ReLU: two conv calls",
+        shape=f"B{BATCH} 128x128 C32 float32 (row); every W32 branch shape in per_shape",
+        per_shape=per_shape, fold_max_abs_err=fold_err))
     print("kernels: " + "; ".join(
         f"{r['name']} replaces={r['replaces']} {REPLACES[r['name']][1]} launches={r['launches']} "
-        f"(dense scene {r['launches_dense_scene']}) parity={r['parity']} "
-        f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) plain_ms={r['plain_ms']:.2f}"
+        f"({r['path']} path; {r['launches_by_path']}) parity={r['parity']} "
+        f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) plain_ms={r['plain_ms']:.2f} "
+        f"library_ms={r['library_ms']}"
         for r in kernels), flush=True)
     print(json.dumps({"e2e": {"batch": BATCH, "size": SIZE, "forward_ms": fwd_ms,
                               "decode_ms": dec_ms, "decode_dense_ms": dense_ms,
+                              "decode_fused_ms": fused_ms, "stage_scene_decode_ms": scene_ms,
                               "forward_decode_wall_ms": wall_ms,
                               "img_per_s": BATCH / wall_ms * 1e3, "device_busy_ms": busy_ms,
-                              "device_busy_groups_ms": busy_groups, "card": smi}}), flush=True)
+                              "device_busy_groups_ms": busy_groups,
+                              "fused_decode_busy_groups_ms": fused_groups,
+                              "fused_vs_dense": {"person_slots_differ": persons_differ,
+                                                 "joints_differ": joints_differ},
+                              "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -7,10 +7,12 @@ so a build takes seconds) and is compiled on its own into
 an edited source is rebuilt and a stale library is never loaded. Builds of
 several kernels run in parallel (``build_kernels``).
 
-The decode kernels are compiled without fast math and with ``--fmad=false``:
-a fused multiply-add in the squared-distance sum, or an approximate
-``sqrtf``, can move a tag distance across a ``.5`` rounding boundary and flip
-an assignment against the plain version.
+The kernels are compiled without fast math and with ``--fmad=false``: a
+fused multiply-add in the squared-distance sum, or an approximate ``sqrtf``,
+can move a tag distance across a ``.5`` rounding boundary and flip an
+assignment against the plain version, and the fused front end's lerps are
+bit-equal to the plain version only unfused. The convolution kernel asks for
+its fused multiply-adds explicitly (``fmaf``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "match_by_tag": ("launch_match_by_tag", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]),
     "refine_argmax": ("launch_refine_argmax", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "fused_aggregate": ("launch_fused_aggregate", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "refine_argmax_phase": ("launch_refine_argmax_phase",
+                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "fused_basic_block": ("launch_fused_basic_block",
+                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -10,8 +10,10 @@ path Hungarian (rows with ``score <= det_thr`` skipped, in candidate order),
 accepts a match only if the raw distance is ``< tag_thr``, and turns every
 other valid candidate into a new person in candidate order, up to P persons.
 
-``match_by_tag_batched`` launches ``csrc/match_by_tag.cu`` on CUDA tensors
-and runs ``match_by_tag_batched_plain`` on CPU tensors.
+``match_by_tag_batched`` and the per-image entry ``match_by_tag_per_image``
+(replacing ``match_by_tag_pallas``, ``_match_kernel``) launch
+``csrc/match_by_tag.cu`` on CUDA tensors and run ``match_by_tag_batched_plain``
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -106,21 +108,18 @@ def _order_on(joints_order: tuple, device: str) -> torch.Tensor:
     return torch.tensor(joints_order, dtype=torch.int32, device=device)
 
 
-def match_by_tag_batched(cand_ordered: torch.Tensor, det_thr: float, tag_thr: float,
-                         joints_order, num_persons: int | None = None):
-    """Batched grouping. ``cand_ordered [B, K, M, 3+E]`` float32 (x, y,
-    score, tags), already permuted to ``joints_order`` along K ->
-    ``joints [B, P, K, 3+E]`` float32, ``count [B]`` int32.
-
-    CUDA tensors launch the kernel (counted in ``match_by_tag_batched.launches``);
-    CPU tensors run the plain version."""
+def _checked(cand_ordered: torch.Tensor, joints_order, num_persons: int | None):
+    """``(P, E)`` of a grouping call, after the checks both entries share."""
     b, k, m, f = cand_ordered.shape
-    e = f - 3
-    p = num_persons or m
     if len(joints_order) != k or sorted(joints_order) != list(range(k)):
         raise ValueError(f"joints_order must be a permutation of range({k})")
-    if cand_ordered.device.type == "cpu":
-        return match_by_tag_batched_plain(cand_ordered, det_thr, tag_thr, joints_order, p)
+    return num_persons or m, f - 3
+
+
+def _launch(cand_ordered: torch.Tensor, det_thr: float, tag_thr: float, joints_order, p: int):
+    """Launch ``csrc/match_by_tag.cu`` (one block per image) on a CUDA tensor."""
+    b, k, m, f = cand_ordered.shape
+    e = f - 3
     if cand_ordered.device.type != "cuda":
         raise ValueError(f"unsupported device {cand_ordered.device}")
     if cand_ordered.dtype != torch.float32 or not cand_ordered.is_contiguous():
@@ -144,8 +143,46 @@ def match_by_tag_batched(cand_ordered: torch.Tensor, det_thr: float, tag_thr: fl
     )
     if err != 0:
         raise RuntimeError(f"match_by_tag kernel launch failed: cudaError {err}")
-    match_by_tag_batched.launches += 1
     return joints, count
 
 
+def match_by_tag_batched(cand_ordered: torch.Tensor, det_thr: float, tag_thr: float,
+                         joints_order, num_persons: int | None = None):
+    """Batched grouping. ``cand_ordered [B, K, M, 3+E]`` float32 (x, y,
+    score, tags), already permuted to ``joints_order`` along K ->
+    ``joints [B, P, K, 3+E]`` float32, ``count [B]`` int32.
+
+    CUDA tensors launch the kernel (counted in ``match_by_tag_batched.launches``);
+    CPU tensors run the plain version."""
+    p, _ = _checked(cand_ordered, joints_order, num_persons)
+    if cand_ordered.device.type == "cpu":
+        return match_by_tag_batched_plain(cand_ordered, det_thr, tag_thr, joints_order, p)
+    out = _launch(cand_ordered, det_thr, tag_thr, joints_order, p)
+    match_by_tag_batched.launches += 1
+    return out
+
+
 match_by_tag_batched.launches = 0
+
+
+def match_by_tag_per_image(cand_ordered: torch.Tensor, det_thr: float = 0.1, tag_thr: float = 1.0,
+                           joints_order=(), num_persons: int | None = None):
+    """The per-image grouping entry, with the signature of
+    ``human_pose_tpu/ops/pallas_match.py::match_by_tag_pallas`` (one image
+    per grid cell there; its grid asks ``K*(3+E) <= 128``). The CUDA kernel
+    already runs one block per image, so this is the same launch as
+    ``match_by_tag_batched`` with its own count
+    (``match_by_tag_per_image.launches``); CPU tensors run the plain
+    version."""
+    p, e = _checked(cand_ordered, joints_order, num_persons)
+    k = cand_ordered.shape[1]
+    if k * (3 + e) > 128:
+        raise ValueError(f"K*(3+E) = {k * (3 + e)} > 128")
+    if cand_ordered.device.type == "cpu":
+        return match_by_tag_batched_plain(cand_ordered, det_thr, tag_thr, joints_order, p)
+    out = _launch(cand_ordered, det_thr, tag_thr, joints_order, p)
+    match_by_tag_per_image.launches += 1
+    return out
+
+
+match_by_tag_per_image.launches = 0

@@ -11,6 +11,9 @@
 * ``refine_batch`` — recovers missing joints by maximizing
   ``heatmap - round(tag_dist)`` (``cuda_decode.refine_argmax_batch``)
 * ``parse_batch`` — the pipeline, with the single-best-person fallback
+* ``adjust_phase`` / ``refine_batch_phase`` — ``adjust`` and ``refine_batch``
+  for the fused decode front end: heatmaps in the 4x4 phase layout, tags at
+  quarter resolution (``cuda_aggregate.refine_argmax_phase_batch``)
 
 Layouts: heatmaps ``[B, K, H, W]``, tag maps ``[B, K, E, H, W]`` (embedding
 dim before space, so each (b, k) map is one contiguous ``[E, HW]`` block for
@@ -22,8 +25,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .cuda_aggregate import refine_argmax_phase_batch
 from .cuda_decode import refine_argmax_batch
 from .cuda_match import match_by_tag_batched
+from .phase import phase_gather, sample_tags_bilinear
 
 # reference grouping.py:63-65 (1-based list converted to 0-based)
 JOINTS_ORDER = tuple(
@@ -118,28 +123,66 @@ def _gather_hw(hms: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.T
     return torch.gather(hms.reshape(b, k, h * w), 2, flat).permute(0, 2, 1)
 
 
-def _offsets(hms, ys, xs):
-    """Quarter-pixel offsets toward the higher neighbour in x and y."""
-    h, w = hms.shape[2:]
-    right = _gather_hw(hms, ys, torch.clamp(xs + 1, max=w - 1))
-    left = _gather_hw(hms, ys, torch.clamp(xs - 1, min=0))
-    down = _gather_hw(hms, torch.clamp(ys + 1, max=h - 1), xs)
-    up = _gather_hw(hms, torch.clamp(ys - 1, min=0), xs)
+def _gather_phase(avg_phase: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """``avg_phase [B, K, 4, 4, H4, W4]`` at integer full-resolution ``ys,
+    xs [B, P, K]`` -> ``[B, P, K]``."""
+    return phase_gather(avg_phase, ys.transpose(1, 2), xs.transpose(1, 2)).transpose(1, 2)
+
+
+def _offsets(gather, h: int, w: int, ys, xs):
+    """Quarter-pixel offsets toward the higher neighbour in x and y;
+    ``gather(ys, xs)`` reads the heatmap of an ``h x w`` input."""
+    right = gather(ys, torch.clamp(xs + 1, max=w - 1))
+    left = gather(ys, torch.clamp(xs - 1, min=0))
+    down = gather(torch.clamp(ys + 1, max=h - 1), xs)
+    up = gather(torch.clamp(ys - 1, min=0), xs)
     return torch.where(right > left, 0.25, -0.25), torch.where(down > up, 0.25, -0.25)
+
+
+def _adjust(grouped: torch.Tensor, gather, h: int, w: int) -> torch.Tensor:
+    x, y, score = grouped[..., 0], grouped[..., 1], grouped[..., 2]
+    xi = torch.clamp(x.to(torch.int64), 0, w - 1)
+    yi = torch.clamp(y.to(torch.int64), 0, h - 1)
+    ox, oy = _offsets(gather, h, w, yi, xi)
+    keep = score == 0.0
+    out = grouped.clone()
+    out[..., 0] = torch.where(keep, x, x + ox + 0.5)
+    out[..., 1] = torch.where(keep, y, y + oy + 0.5)
+    return out
 
 
 def adjust(grouped: torch.Tensor, kpts_hms: torch.Tensor) -> torch.Tensor:
     """Quarter-pixel offset toward the higher neighbour + 0.5 center shift
     for detected joints. ``grouped [B, P, K, 3+E]``, ``kpts_hms [B, K, H, W]``."""
     h, w = kpts_hms.shape[2:]
-    x, y, score = grouped[..., 0], grouped[..., 1], grouped[..., 2]
-    xi = torch.clamp(x.to(torch.int64), 0, w - 1)
-    yi = torch.clamp(y.to(torch.int64), 0, h - 1)
-    ox, oy = _offsets(kpts_hms, yi, xi)
-    keep = score == 0.0
+    return _adjust(grouped, lambda ys, xs: _gather_hw(kpts_hms, ys, xs), h, w)
+
+
+def _person_tags(det: torch.Tensor, det_tags: torch.Tensor) -> torch.Tensor:
+    """Mean tag ``[B, P, E]`` of each person's detected joints (``det [B, P,
+    K]``, ``det_tags [B, P, K, E]``)."""
+    n_det = torch.clamp(det.sum(dim=2).to(torch.float32), min=1.0)
+    return torch.where(det[..., None], det_tags, 0.0).sum(dim=2) / n_det[..., None]
+
+
+def _write_refined(grouped: torch.Tensor, idx: torch.Tensor, gather, h: int, w: int) -> torch.Tensor:
+    """Put each refine argmax ``idx [B, K, P]`` (flat ``y*w + x``) with its
+    heatmap value and quarter offset into the undetected joints of persons
+    with a detection, where the heatmap there is positive."""
+    score = grouped[..., 2]
+    det = score > 0.0
+    flat_idx = idx.permute(0, 2, 1).to(torch.int64)  # [B, P, K]
+    fy, fx = flat_idx // w, flat_idx % w
+    val = gather(fy, fx)
+    ox, oy = _offsets(gather, h, w, fy, fx)
+    new_x = fx.to(torch.float32) + 0.5 + ox
+    new_y = fy.to(torch.float32) + 0.5 + oy
+
+    replace = (val > 0.0) & (score == 0.0) & (det.sum(dim=2, keepdim=True) > 0)
     out = grouped.clone()
-    out[..., 0] = torch.where(keep, x, x + ox + 0.5)
-    out[..., 1] = torch.where(keep, y, y + oy + 0.5)
+    out[..., 0] = torch.where(replace, new_x, grouped[..., 0])
+    out[..., 1] = torch.where(replace, new_y, grouped[..., 1])
+    out[..., 2] = torch.where(replace, val, grouped[..., 2])
     return out
 
 
@@ -154,8 +197,7 @@ def refine_batch(kpts_hms: torch.Tensor, tags_hms: torch.Tensor, grouped: torch.
     e = tags_hms.shape[2]
     h, w = kpts_hms.shape[2:]
     dev = grouped.device
-    score = grouped[..., 2]
-    det = score > 0.0
+    det = grouped[..., 2] > 0.0
     has_det = det.any(dim=2)  # [B, P]
     slots = torch.arange(p, device=dev)[None, :].expand(b, p)
     counts = (torch.where(has_det, slots, -1).amax(dim=1) + 1).to(torch.int32)
@@ -164,27 +206,13 @@ def refine_batch(kpts_hms: torch.Tensor, tags_hms: torch.Tensor, grouped: torch.
     tags_flat = tags_hms.reshape(b, k, e, h * w)
     pix = (yi * w + xi).permute(0, 2, 1)  # [B, K, P]
     det_tags = torch.gather(tags_flat, 3, pix[:, :, None, :].expand(b, k, e, p))  # [B, K, E, P]
-    det_tags = det_tags.permute(0, 3, 1, 2)  # [B, P, K, E]
-    n_det = torch.clamp(det.sum(dim=2).to(torch.float32), min=1.0)
-    prev_tag = torch.where(det[..., None], det_tags, 0.0).sum(dim=2) / n_det[..., None]
+    prev_tag = _person_tags(det, det_tags.permute(0, 3, 1, 2))
 
     idx = refine_argmax_batch(
         kpts_hms.reshape(b, k, h * w).contiguous(), tags_flat.contiguous(),
         prev_tag.contiguous(), counts,
     )  # [B, K, P]
-    flat_idx = idx.permute(0, 2, 1).to(torch.int64)  # [B, P, K]
-    fy, fx = flat_idx // w, flat_idx % w
-    val = _gather_hw(kpts_hms, fy, fx)
-    ox, oy = _offsets(kpts_hms, fy, fx)
-    new_x = fx.to(torch.float32) + 0.5 + ox
-    new_y = fy.to(torch.float32) + 0.5 + oy
-
-    replace = (val > 0.0) & (score == 0.0) & (det.sum(dim=2, keepdim=True) > 0)
-    out = grouped.clone()
-    out[..., 0] = torch.where(replace, new_x, grouped[..., 0])
-    out[..., 1] = torch.where(replace, new_y, grouped[..., 1])
-    out[..., 2] = torch.where(replace, val, grouped[..., 2])
-    return out
+    return _write_refined(grouped, idx, lambda ys, xs: _gather_hw(kpts_hms, ys, xs), h, w)
 
 
 def group_from_candidates(tags_k, coords_k, scores_k, *, det_thr: float, tag_thr: float):
@@ -232,3 +260,26 @@ def parse_batch(kpts_hms: torch.Tensor, tags_hms: torch.Tensor, max_num_people: 
     if do_refine:
         grouped = refine_batch(kpts_hms, tags_hms, grouped)
     return grouped, person_scores, valid
+
+
+def adjust_phase(grouped: torch.Tensor, avg_phase: torch.Tensor) -> torch.Tensor:
+    """``adjust`` reading a phase-layout heatmap ``avg_phase [B, K, 4, 4,
+    H4, W4]``: the same decisions and arithmetic, only the gather differs."""
+    h, w = 4 * avg_phase.shape[-2], 4 * avg_phase.shape[-1]
+    return _adjust(grouped, lambda ys, xs: _gather_phase(avg_phase, ys, xs), h, w)
+
+
+def refine_batch_phase(avg_phase: torch.Tensor, tags_lo: torch.Tensor,
+                       grouped: torch.Tensor) -> torch.Tensor:
+    """``refine_batch`` for the fused front end: ``avg_phase [B, K, 4, 4, H4,
+    W4]``, quarter-resolution ``tags_lo [B, K, E, H4, W4]`` (sampled at the
+    joints with ``sample_tags_bilinear`` and upsampled inside the refine
+    kernel), ``grouped [B, P, K, 3+E]``. Every person slot is refined, as in
+    JAX; only persons with a detection are written back."""
+    h, w = 4 * avg_phase.shape[-2], 4 * avg_phase.shape[-1]
+    xi = torch.clamp(grouped[..., 0].to(torch.int64), 0, w - 1)
+    yi = torch.clamp(grouped[..., 1].to(torch.int64), 0, h - 1)
+    det_tags = sample_tags_bilinear(tags_lo, yi.transpose(1, 2), xi.transpose(1, 2)).transpose(1, 2)
+    prev_tag = _person_tags(grouped[..., 2] > 0.0, det_tags)
+    idx, _ = refine_argmax_phase_batch(avg_phase, tags_lo, prev_tag.contiguous())  # [B, K, P]
+    return _write_refined(grouped, idx, lambda ys, xs: _gather_phase(avg_phase, ys, xs), h, w)

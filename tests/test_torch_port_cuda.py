@@ -6,8 +6,10 @@ so it runs on a machine without them:
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_port_cuda.py
 
-The kernels repeat their plain versions' float32 arithmetic step for step,
-so every comparison is exact.
+The decode kernels repeat their plain versions' float32 arithmetic step for
+step, so those comparisons are exact. The fused BasicBlock sums its
+convolutions in another order than cuDNN: float32 within 1e-4 (TF32 off),
+bfloat16 within a few bf16 ulps of the output's scale.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import pytest
 import torch
 
 from human_pose_tpu_torch.ops import (
-    JOINTS_ORDER, decode_batch, match_by_tag_batched, match_by_tag_batched_plain,
-    refine_argmax_batch, refine_argmax_batch_plain,
+    JOINTS_ORDER, decode_batch, decode_batch_fused, fused_aggregate, fused_aggregate_plain,
+    fused_basic_block, fused_basic_block_plain, match_by_tag_batched, match_by_tag_batched_plain,
+    match_by_tag_per_image, refine_argmax_batch, refine_argmax_batch_plain,
+    refine_argmax_phase_batch, refine_argmax_phase_batch_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -28,6 +32,8 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -101,3 +107,98 @@ def test_decode_card_equals_cpu(dev):
                               det_thr=0.05, tag_thr=0.5)
     assert torch.equal(gv.cpu(), cv) and int(cv.sum()) >= 2 * 8
     assert torch.allclose(gj.cpu()[cv], cj[cv], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("b,k,h4,w4", [(2, 3, 16, 128), (3, 5, 13, 20), (1, 2, 1, 3)])
+def test_fused_aggregate_kernel_equals_plain(dev, b, k, h4, w4):
+    """Bit-equal maps and row maxima, on signed maps with a flat plateau (the
+    NMS keeps every equal maximum)."""
+    rng = np.random.RandomState(h4)
+    q = rng.randn(b, k, h4, w4).astype(np.float32)
+    h2 = rng.randn(b, k, 2 * h4, 2 * w4).astype(np.float32)
+    q[0, 0, : max(1, h4 // 2), : max(1, w4 // 2)] = 5.0
+    h2[0, 0, :h4, :w4] = 5.0
+    q, h2 = torch.from_numpy(q).to(dev), torch.from_numpy(h2).to(dev)
+    want = fused_aggregate_plain(q, h2)
+    before = fused_aggregate.launches
+    got = fused_aggregate(q, h2)
+    torch.cuda.synchronize()
+    assert fused_aggregate.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("e", [1, 2, 3])
+def test_refine_phase_kernel_equals_plain(dev, e):
+    rng = np.random.RandomState(e)
+    b, k, h4, w4, p = 2, 3, 24, 40, 30
+    avg = torch.from_numpy(rng.rand(b, k, 4, 4, h4, w4).astype(np.float32)).to(dev)
+    tags = torch.from_numpy(rng.randn(b, k, e, h4, w4).astype(np.float32) * 2).to(dev)
+    prev = torch.from_numpy(rng.randn(b, p, e).astype(np.float32) * 2).to(dev)
+    want = refine_argmax_phase_batch_plain(avg, tags, prev)
+    got = refine_argmax_phase_batch(avg, tags, prev)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_refine_phase_kernel_tie_first(dev):
+    avg = torch.ones((2, 3, 4, 4, 16, 16), device=dev)
+    tags = torch.zeros((2, 3, 1, 16, 16), device=dev)
+    prev = torch.zeros((2, 8, 1), device=dev)
+    idx, val = refine_argmax_phase_batch(avg, tags, prev)
+    assert int(idx.abs().max()) == 0 and bool((val == 1).all())
+
+
+def test_match_per_image_kernel_equals_plain_and_batched(dev):
+    cand = _candidates(7, 6, 17, 30, 2, 20)
+    want_j, want_c = match_by_tag_batched_plain(cand, 0.1, 1.0, JOINTS_ORDER, 30)
+    before = match_by_tag_per_image.launches
+    got_j, got_c = match_by_tag_per_image(cand.to(dev), 0.1, 1.0, JOINTS_ORDER, 30)
+    torch.cuda.synchronize()
+    assert match_by_tag_per_image.launches == before + 1
+    assert torch.equal(got_c.cpu(), want_c) and torch.equal(got_j.cpu(), want_j)
+    bat_j, bat_c = match_by_tag_batched(cand.to(dev), 0.1, 1.0, JOINTS_ORDER, 30)
+    assert torch.equal(bat_j, got_j) and torch.equal(bat_c, got_c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 32, 32), (2, 16, 16, 64), (1, 8, 12, 128), (2, 8, 8, 256),
+                                   (1, 5, 7, 12)])
+def test_fused_basic_block_kernel_vs_plain(dev, shape, dtype):
+    rng = np.random.RandomState(shape[-1])
+    c = shape[-1]
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+    w1, w2 = (rng.randn(3, 3, c, c).astype(np.float32) / np.sqrt(9 * c) for _ in range(2))
+    b1, b2 = (rng.randn(c).astype(np.float32) * 0.1 for _ in range(2))
+    ws = [torch.from_numpy(a).to(dev) for a in (w1, b1, w2, b2)]
+    want = fused_basic_block_plain(x, *ws).float()
+    got = fused_basic_block(x, *ws)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    err = float((got.float() - want).abs().max())
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * float(want.abs().max())
+    assert err <= tol, (err, tol)
+
+
+def test_decode_fused_card_equals_cpu(dev):
+    """The fused front end on the card vs the CPU path (plain kernels) on the
+    same stage maps: the same persons, coordinates and scores within 1e-6."""
+    rng = np.random.RandomState(1)
+    n, k, h4 = 2, 17, 32
+    q = rng.rand(n, k, h4, h4).astype(np.float32) * 0.02
+    tg = rng.randn(n, k, h4, h4).astype(np.float32) * 0.05
+    for i in range(n):
+        for person in range(8):
+            for j in range(k):
+                y, x = rng.randint(2, h4 - 2), rng.randint(2, h4 - 2)
+                q[i, j, y, x] = 0.5 + 0.5 * rng.rand()
+                tg[i, j, y - 1:y + 2, x - 1:x + 2] = 3.0 * person + rng.randn(3, 3) * 0.01
+    h2 = np.repeat(np.repeat(q, 2, axis=2), 2, axis=3) * 0.5
+    stages = [torch.from_numpy(q), torch.from_numpy(h2)]
+    tags = [torch.from_numpy(tg)]
+    cj, cs, cv = decode_batch_fused(stages, tags, (4 * h4, 4 * h4), det_thr=0.05, tag_thr=0.5)
+    gj, gs, gv = decode_batch_fused([s.to(dev) for s in stages], [t.to(dev) for t in tags],
+                                    (4 * h4, 4 * h4), det_thr=0.05, tag_thr=0.5)
+    assert torch.equal(gv.cpu(), cv) and int(cv.sum()) >= 2 * 8
+    assert torch.allclose(gj.cpu(), cj, atol=1e-6, rtol=0)
+    assert torch.allclose(gs.cpu(), cs, atol=1e-6, rtol=0)

@@ -70,15 +70,24 @@ def test_entry_points_refuse_missing_card():
 def test_kernel_wrappers_refuse_other_devices():
     """A tensor that is neither on the CPU nor on a card is refused: the
     wrappers take the plain version only for CPU tensors."""
-    from human_pose_tpu_torch.ops import match_by_tag_batched, refine_argmax_batch
+    from human_pose_tpu_torch.ops import (
+        fused_aggregate, fused_basic_block, match_by_tag_batched, match_by_tag_per_image,
+        refine_argmax_batch, refine_argmax_phase_batch,
+    )
 
+    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
     with pytest.raises(ValueError, match="device"):
-        refine_argmax_batch(
-            torch.empty((1, 2, 64), device="meta"), torch.empty((1, 2, 1, 64), device="meta"),
-            torch.empty((1, 3, 1), device="meta"), torch.empty((1,), dtype=torch.int32, device="meta"),
-        )
+        refine_argmax_batch(meta(1, 2, 64), meta(1, 2, 1, 64), meta(1, 3, 1),
+                            torch.empty((1,), dtype=torch.int32, device="meta"))
+    for match in (match_by_tag_batched, match_by_tag_per_image):
+        with pytest.raises(ValueError, match="device"):
+            match(meta(1, 17, 4, 4), 0.1, 1.0, tuple(range(17)), 4)
     with pytest.raises(ValueError, match="device"):
-        match_by_tag_batched(torch.empty((1, 17, 4, 4), device="meta"), 0.1, 1.0, tuple(range(17)), 4)
+        fused_aggregate(meta(1, 2, 4, 8), meta(1, 2, 8, 16))
+    with pytest.raises(ValueError, match="device"):
+        refine_argmax_phase_batch(meta(1, 2, 4, 4, 4, 8), meta(1, 2, 1, 4, 8), meta(1, 3, 1))
+    with pytest.raises(ValueError, match="device"):
+        fused_basic_block(meta(1, 8, 8, 8), meta(3, 3, 8, 8), meta(8), meta(3, 3, 8, 8), meta(8))
 
 
 def test_chip_smoke_fails_without_card(tmp_path):
