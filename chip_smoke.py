@@ -9,8 +9,10 @@ decode front end (``decode_batch_fused``) on seeded random weights and
 seeded synthetic scenes. Phases, any failure exits non-zero:
 
 1. device: card name and power limit, TF32 switches
-2. build: all five CUDA kernels from ``human_pose_tpu_torch/csrc`` (one
-   nvcc per source, in parallel), with ptxas registers and spills
+2. build: all five CUDA libraries from ``human_pose_tpu_torch/csrc`` (one
+   nvcc per source, in parallel), with ptxas registers and spills of every
+   kernel and the count of HGMMA (tensor-core) instructions in the fused
+   BasicBlock's library
 3. kernel parity at main-path shapes, CUDA kernel vs its plain version, both
    on the card: the dense refine and the grouping; the fused aggregate, the
    phase refine (E=1, E=2, a tie case) and the fused BasicBlock at the four
@@ -24,7 +26,7 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    refine, none of the dense refine); card == CPU, fused == dense on the
    scene, the agreement on the forward's outputs printed; the per-image
    grouping entry on the scene's candidates; the W32 model's BasicBlocks
-   folded and run through the fused block
+   folded and run through the fused block in float32 and in bfloat16
 6. timing: forward, decode and img/s (CUDA events and host wall clock), a
    per-kernel profiler breakdown of one forward+decode with the device's
    idle share, fused vs dense decode, each kernel vs its plain version, its
@@ -112,6 +114,53 @@ def make_scene(rng: np.random.Generator, n: int, h: int, w: int, e: int,
                 patch = tag_val[:, None, None] + rng.standard_normal((e, 5, 5), dtype=np.float32) * np.float32(0.01)
                 tags[i, k, :, cy - 2:cy + 3, cx - 2:cx + 3] = patch
     return kpts, tags
+
+
+def log_build(build) -> None:
+    """ptxas' registers, spills, warnings and errors of each kernel built by
+    this process, one line per kernel (template instances told apart)."""
+    import re
+
+    for lib, text in build.build_logs.items():
+        entry = lib
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = kernel_name(m.group(1)) or lib
+            elif "Performance Loss" in line:  # printed before the kernel's own lines
+                named = re.search(r"function '([^']+)'", line)
+                what = kernel_name(named.group(1)) if named else entry
+                log(f"  {lib}/{what}: {line.strip().split(' in the function')[0][:160]}")
+            elif "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"  {lib}/{entry}: {line.strip()[:160]}")
+
+
+def kernel_name(mangled: str) -> str | None:
+    """``name<N>`` of a mangled ``..._kernel`` symbol: the length-prefixed
+    identifier that ends in ``kernel``, with its first integer template
+    argument."""
+    import re
+
+    for m in re.finditer(r"\d+", mangled):
+        ident = mangled[m.end():m.end() + int(m.group())]
+        if ident.endswith("kernel"):
+            arg = re.match(r"ILi(\d+)E", mangled[m.end() + len(ident):])
+            return f"{ident}<{arg.group(1)}>" if arg else ident
+    return None
+
+
+def count_sass(build, name: str, opcode: str) -> int | None:
+    """Instructions of ``opcode`` in the SASS of library ``name`` (None when
+    the toolkit has no cuobjdump)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("cuobjdump not found: SASS not inspected")
+        return None
+    sass = subprocess.run([tool, "--dump-sass", str(build._lib_path(name))], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
 
 
 def nvidia_smi_line() -> str:
@@ -301,7 +350,7 @@ def match_bound(cand, num_persons):
     counts written once; operations counted as the least these inputs need,
     one Hungarian relaxation pass (4 fp32 operations per column) for every
     row above det_thr. The kernel is latency-bound (a dependent chain of
-    block-wide argmins), so this bound is far below any reachable time."""
+    warp-wide argmins), so this bound is far below any reachable time."""
     b, k, m, f = cand.shape
     nbytes = 4 * (cand.numel() + k + b * num_persons * k * f + b)
     ops = int((cand[..., 2] > DET_THR).sum()) * max(m, num_persons) * 4
@@ -331,10 +380,11 @@ def refine_phase_bound(avg, tags, prev):
 
 def conv_bound(x):
     """(bound_ms, bound_by) of a BasicBlock: x read once, the output written
-    once, both float32 weight sets read once; 2 * 9 * C * C FLOP per pixel
-    and conv, at the peak of the input's type (bf16 on tensor cores)."""
+    once, both weight sets read once in the operands' type (bf16 for bf16
+    x), the float32 biases once; 2 * 9 * C * C FLOP per pixel and conv, at
+    the peak of the input's type (bf16 on tensor cores)."""
     b, h, w, c = x.shape
-    nbytes = 2 * x.numel() * x.element_size() + 4 * (2 * 9 * c * c + 2 * c)
+    nbytes = 2 * x.numel() * x.element_size() + x.element_size() * 2 * 9 * c * c + 4 * 2 * c
     peak = PEAK_FP32_S if x.dtype.itemsize == 4 else PEAK_BF16_S
     return bound(nbytes, 2 * 2 * 9 * c * c * h * w * b, peak)
 
@@ -490,10 +540,11 @@ def block_weights(gen, c: int, dev):
 def basic_block_parity(dev, gen):
     """The fused BasicBlock vs its plain version at the four W32 branch
     shapes, batch 24, both on the card: float32 within 1e-4 (TF32 off);
-    bfloat16 within 2**-6 of the output's largest magnitude (4 bf16 ulps:
-    the kernel and cuDNN sum in different orders, so an intermediate value
-    at a bf16 rounding boundary can round either way, and the output is
-    rounded again). Returns one record per (shape, dtype) with its inputs."""
+    bfloat16 (bf16 weights, both versions) within 2**-6 of the output's
+    largest magnitude (4 bf16 ulps: the kernel and cuDNN sum in different
+    orders, so an intermediate value at a bf16 rounding boundary can round
+    either way, and the output is rounded again). Returns one record per
+    (shape, dtype) with its inputs."""
     import torch
 
     from human_pose_tpu_torch.ops import cuda_conv
@@ -592,10 +643,11 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = _build.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f}s wall, per kernel {secs}")
-    for kname, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  {kname}: {line.strip()}")
+    log_build(_build)
+    hgmma = count_sass(_build, "fused_basic_block", "HGMMA")
+    log(f"fused_basic_block: {hgmma} HGMMA instructions in its SASS (cuobjdump --dump-sass)")
+    if hgmma == 0:
+        raise AssertionError("fused_basic_block: no HGMMA in the built library: the tensor cores are unused")
 
     # 3. kernel parity
     errs, scenes = phase_parity(dev, rng)
@@ -768,18 +820,25 @@ def main() -> int:
     block_x = [torch.rand((BATCH, hw, hw, blk.conv1.in_channels), generator=gen).to(dev)
                for blk, hw in blocks]
     blocks = [blk for blk, _ in blocks]
+    folded = [fold_basic_block(blk) for blk in blocks]
     outs, launches_blocks = counted(
-        lambda: [cuda_conv.fused_basic_block(x, *fold_basic_block(blk)) for blk, x in zip(blocks, block_x)],
-        "W32 BasicBlocks through the fused block", {"fused_basic_block": len(blocks)})
-    fold_err = 0.0
+        lambda: [cuda_conv.fused_basic_block(xx, *f) for f, x in zip(folded, block_x)
+                 for xx in (x, x.to(torch.bfloat16))],
+        "W32 BasicBlocks through the fused block (float32, bfloat16)",
+        {"fused_basic_block": 2 * len(blocks)})
+    fold_err, bf16_rel = 0.0, 0.0
     with torch.no_grad():
-        for blk, x, out in zip(blocks, block_x, outs):
+        for i, (blk, x, f) in enumerate(zip(blocks, block_x, folded)):
             want = blk(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-            fold_err = max(fold_err, float((out - want).abs().max()))
-    if fold_err > 1e-4:
-        raise AssertionError(f"folded W32 BasicBlocks: fused block vs eval forward {fold_err}")
-    log(f"folded W32 BasicBlocks ({len(blocks)}, C=32..256): fused block == eval forward "
-        f"within {fold_err:.3g}")
+            fold_err = max(fold_err, float((outs[2 * i] - want).abs().max()))
+            want_bf16 = cuda_conv.fused_basic_block_plain(x.to(torch.bfloat16), *f).float()
+            bf16_rel = max(bf16_rel, float((outs[2 * i + 1].float() - want_bf16).abs().max()
+                                           / want_bf16.abs().max()))
+    if fold_err > 1e-4 or bf16_rel > 2 ** -6:
+        raise AssertionError(f"folded W32 BasicBlocks: float32 vs eval forward {fold_err}, "
+                             f"bfloat16 vs plain {bf16_rel} of the output scale")
+    log(f"folded W32 BasicBlocks ({len(blocks)}, C=32..256): float32 == eval forward within "
+        f"{fold_err:.3g}; bfloat16 == plain within {bf16_rel:.3g} of the output scale")
 
     # 6. timing
     synced_infer = lambda: (infer(images), torch.cuda.synchronize())  # noqa: E731
@@ -879,23 +938,32 @@ def main() -> int:
             return torch.relu(F.conv2d(y, lib_w[2], lib_w[3], padding=1) + x_cl)
 
         b_ms, b_by = conv_bound(x)
+        call_ms = cuda_ms(lambda: cuda_conv.fused_basic_block(*r["inputs"]), iters=10)
+        if x.dtype == torch.bfloat16:  # the kernel alone, on weights packed once
+            packed = cuda_conv.pack_block_weights(w1, b1, w2, b2)
+            k_ms = cuda_ms(lambda: cuda_conv.fused_basic_block_packed(x, *packed), iters=10)
+        else:
+            k_ms = call_ms
         per_shape.append({
             "c": r["c"], "hw": r["hw"], "dtype": r["dtype"], "max_abs_err": r["max_abs_err"],
-            "tol": r["tol"], "ms": cuda_ms(lambda: cuda_conv.fused_basic_block(*r["inputs"]), iters=10),
+            "tol": r["tol"], "ms": k_ms, "ms_with_packing": call_ms,
             "plain_ms": cuda_ms(lambda: cuda_conv.fused_basic_block_plain(*r["inputs"]), iters=5),
             "library_ms": cuda_ms(library, iters=10), "bound_ms": b_ms, "bound_by": b_by})
-        log(f"fused block C={r['c']} {r['hw']}^2 {r['dtype']}: {per_shape[-1]['ms']:.3f} ms, plain "
-            f"{per_shape[-1]['plain_ms']:.3f}, cuDNN pair {per_shape[-1]['library_ms']:.3f}, bound "
-            f"{b_ms:.4f} ({b_by})")
-    head_row = per_shape[0]  # C=32 at 128^2, float32
-    errs["fused_basic_block"] = max(r["max_abs_err"] for r in per_shape if r["dtype"] == "float32")
+        log(f"fused block C={r['c']} {r['hw']}^2 {r['dtype']}: {k_ms:.3f} ms (with weight packing "
+            f"{call_ms:.3f}), plain {per_shape[-1]['plain_ms']:.3f}, cuDNN pair "
+            f"{per_shape[-1]['library_ms']:.3f}, bound {b_ms:.4f} ({b_by})  [{smi}]")
+    head_row = next(r for r in per_shape if r["dtype"] == "bfloat16")  # C=32 at 128^2, bf16
+    errs["fused_basic_block"] = head_row["max_abs_err"]
     kernels.append(row(
         "fused_basic_block", "w32_blocks",
-        "float32 within 1e-4, bfloat16 within 2**-6 of the output scale",
+        "bfloat16 (bf16 weights) within 2**-6 of the output scale, float32 within 1e-4",
         head_row["ms"], head_row["plain_ms"], (head_row["bound_ms"], head_row["bound_by"]),
         head_row["library_ms"], library="cuDNN conv pair with bias, add and ReLU: two conv calls",
-        shape=f"B{BATCH} 128x128 C32 float32 (row); every W32 branch shape in per_shape",
-        per_shape=per_shape, fold_max_abs_err=fold_err))
+        shape=f"B{BATCH} 128x128 C32 bfloat16 (row; ms on weights packed once, "
+              f"{head_row['ms_with_packing']:.4f} with packing); every W32 branch shape and dtype "
+              "in per_shape",
+        per_shape=per_shape, fold_max_abs_err=fold_err, w32_bf16_rel_err=bf16_rel,
+        hgmma_instructions=hgmma))
     print("kernels: " + "; ".join(
         f"{r['name']} replaces={r['replaces']} {REPLACES[r['name']][1]} launches={r['launches']} "
         f"({r['path']} path; {r['launches_by_path']}) parity={r['parity']} "

@@ -12,7 +12,7 @@ fused multiply-add in the squared-distance sum, or an approximate ``sqrtf``,
 can move a tag distance across a ``.5`` rounding boundary and flip an
 assignment against the plain version, and the fused front end's lerps are
 bit-equal to the plain version only unfused. The convolution kernel asks for
-its fused multiply-adds explicitly (``fmaf``).
+its fused multiply-adds explicitly (``fmaf``) or runs on the tensor cores.
 """
 
 from __future__ import annotations
@@ -34,17 +34,19 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
 )
 
-# ctypes signatures of each library's launch function: every pointer and the
-# stream as c_void_p (a bare int would be cut to 32 bits)
+# ctypes signatures of each library's launch functions: every pointer and
+# the stream as c_void_p (a bare int would be cut to 32 bits)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "match_by_tag": ("launch_match_by_tag", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]),
-    "refine_argmax": ("launch_refine_argmax", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "fused_aggregate": ("launch_fused_aggregate", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "refine_argmax_phase": ("launch_refine_argmax_phase",
-                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "fused_basic_block": ("launch_fused_basic_block",
-                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "match_by_tag": {"launch_match_by_tag": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]},
+    "refine_argmax": {"launch_refine_argmax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "fused_aggregate": {"launch_fused_aggregate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "refine_argmax_phase": {"launch_refine_argmax_phase":
+                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "fused_basic_block": {
+        "launch_fused_basic_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "launch_fused_basic_block_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -105,9 +107,9 @@ def load_kernel(name: str) -> ctypes.CDLL:
     if lib is None:
         build_kernels((name,))
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

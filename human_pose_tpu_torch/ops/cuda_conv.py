@@ -9,11 +9,17 @@ Replaces ``human_pose_tpu/ops/pallas_conv.py::fused_basic_block``
 
 on NHWC ``x`` with HWIO weights, stride 1, the same channels in and out,
 float32 accumulation, the intermediate activation cast to ``x.dtype`` before
-the second convolution and the residual added in float32. As in JAX, the
-model does not route its blocks through it.
+the second convolution and the residual added in float32. For bfloat16 ``x``
+both convolutions take bfloat16 operands: the weights are rounded to
+bfloat16 (what the Pallas kernel multiplies when its weights are bf16, and
+what autocast feeds a bf16 model's convolutions); the biases stay float32.
+As in JAX, the model does not route its blocks through it.
 
 ``fused_basic_block`` launches ``csrc/fused_basic_block.cu`` on CUDA tensors
-and runs ``fused_basic_block_plain`` on CPU tensors.
+(bfloat16 on the tensor cores, float32 on CUDA cores) and runs
+``fused_basic_block_plain`` on CPU tensors. The bfloat16 kernel takes its
+weights pre-packed (``pack_block_weights``); ``fused_basic_block_packed``
+launches it on weights packed once.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ import torch.nn.functional as F
 
 from ..models.norm import BN_EPS
 
-MAX_C = 256  # channels: one output channel per thread of a 256-thread block
+MAX_C = 256  # channels: one output channel per thread of the float32 kernel's block
+PADDED_C = (16, 32, 64, 128, 256)  # channel counts the bfloat16 kernel is built for
 
 
 def fold_conv_bn(kernel: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -64,10 +71,99 @@ def reference_basic_block(x, w1, b1, w2, b2):
 
 def fused_basic_block_plain(x, w1, b1, w2, b2):
     """Plain version of the kernel; same arguments as ``fused_basic_block``."""
+    if x.dtype == torch.bfloat16:  # bf16 operands, as the kernel multiplies them
+        w1, w2 = (w.to(torch.bfloat16).to(torch.float32) for w in (w1, w2))
     xf = x.permute(0, 3, 1, 2).to(torch.float32)
     y = torch.relu(_conv3x3(xf, w1, b1)).to(x.dtype).to(torch.float32)
     z = _conv3x3(y, w2, b2)
     return torch.relu(z + xf).to(x.dtype).permute(0, 2, 3, 1).contiguous()
+
+
+def padded_channels(c: int) -> int:
+    """The channel count ``CP`` the bfloat16 kernel computes ``c`` channels
+    in (the extra input and output channels have zero weights)."""
+    for cp in PADDED_C:
+        if c <= cp:
+            return cp
+    raise ValueError(f"unsupported C={c} (at most {PADDED_C[-1]})")
+
+
+def chunk_channels(cp: int) -> int:
+    """Input channels of one weight chunk the kernel streams (one tap); the
+    kernel's ``Cfg<CP>::KCH`` in ``csrc/fused_basic_block.cu``."""
+    return min(cp, 64)
+
+
+def pack_block_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor):
+    """The bfloat16 kernel's operands from HWIO ``w1, w2 [3, 3, C, C]`` and
+    ``b1, b2 [C]``: ``(wpack, bias)``.
+
+    ``wpack`` is a flat bfloat16 tensor of both convolutions' weights padded
+    to ``CP`` channels, in the order the kernel streams them: conv, tap
+    (dy, dx), chunk of ``KCH`` input channels; within a chunk the layout of
+    ``wgmma``'s K-major B operand without swizzle, 8x8 core matrices (8
+    output channels x 8 input channels, 128 contiguous bytes) ordered
+    (k16 step, output-channel group of 8, input-channel half). ``bias`` is
+    ``[2, CP]`` float32, zero past C."""
+    c = w1.shape[2]
+    cp = padded_channels(c)
+    kch = chunk_channels(cp)
+    w = torch.zeros((2, 9, cp, cp), dtype=torch.float32, device=w1.device)
+    w[:, :, :c, :c] = torch.stack([w1, w2]).to(torch.float32).reshape(2, 9, c, c)
+    # [conv, tap, ci, co] with ci = (kc, ks, kh, k8) and co = (ng, n8)
+    w = w.reshape(2, 9, cp // kch, kch // 16, 2, 8, cp // 8, 8)
+    wpack = w.permute(0, 1, 2, 3, 6, 4, 7, 5).to(torch.bfloat16).contiguous().reshape(-1)
+    bias = torch.zeros((2, cp), dtype=torch.float32, device=w1.device)
+    bias[0, :c] = b1.to(torch.float32)
+    bias[1, :c] = b2.to(torch.float32)
+    return wpack, bias
+
+
+def _check_shapes(x, w1, b1, w2, b2):
+    c = x.shape[-1]
+    if (x.dim() != 4 or tuple(w1.shape) != (3, 3, c, c) or tuple(w2.shape) != (3, 3, c, c)
+            or tuple(b1.shape) != (c,) or tuple(b2.shape) != (c,)):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)} w1 {tuple(w1.shape)} "
+                         f"b1 {tuple(b1.shape)} w2 {tuple(w2.shape)} b2 {tuple(b2.shape)}")
+
+
+def _check_cuda_x(x: torch.Tensor, dtypes):
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in dtypes or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous tensor of {dtypes}")
+    c = x.shape[-1]
+    if c > MAX_C or c % 4:
+        raise ValueError(f"unsupported C={c} (a multiple of 4, at most {MAX_C})")
+
+
+def fused_basic_block_packed(x: torch.Tensor, wpack: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 kernel on weights packed by ``pack_block_weights``:
+    ``x [B, H, W, C]`` bfloat16 CUDA -> ``[B, H, W, C]`` bfloat16. Counted in
+    ``fused_basic_block.launches``."""
+    _check_cuda_x(x, (torch.bfloat16,))
+    b, h, w, c = x.shape
+    cp = padded_channels(c)
+    if (wpack.dtype != torch.bfloat16 or wpack.numel() != 2 * 9 * cp * cp or bias.dtype != torch.float32
+            or tuple(bias.shape) != (2, cp) or wpack.device != x.device or bias.device != x.device
+            or not (wpack.is_contiguous() and bias.is_contiguous())):
+        raise ValueError(f"packed weights do not fit C={c}: pack them with pack_block_weights")
+    # TMA needs the pixel stride in 16-byte units: pad the channels to a multiple of 8
+    xk = x if c % 8 == 0 else F.pad(x, (0, 8 - c % 8))
+    from ._build import load_kernel
+
+    lib = load_kernel("fused_basic_block")
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.launch_fused_basic_block_bf16(
+        ctypes.c_void_p(xk.data_ptr()), ctypes.c_void_p(wpack.data_ptr()),
+        ctypes.c_void_p(bias.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        b, h, w, c, xk.shape[-1], cp, ctypes.c_void_p(stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_basic_block (bf16) kernel launch failed: cudaError {err}")
+    fused_basic_block.launches += 1
+    return out
 
 
 def fused_basic_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -76,20 +172,16 @@ def fused_basic_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: t
     HWIO with BN folded, ``b1, b2 [C]`` -> ``[B, H, W, C]`` in ``x.dtype``.
 
     CUDA tensors launch the kernel (counted in ``fused_basic_block.launches``;
-    the weights are used as float32); CPU tensors run the plain version."""
-    b, h, w, c = x.shape
-    if (tuple(w1.shape) != (3, 3, c, c) or tuple(w2.shape) != (3, 3, c, c)
-            or tuple(b1.shape) != (c,) or tuple(b2.shape) != (c,)):
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)} w1 {tuple(w1.shape)} "
-                         f"b1 {tuple(b1.shape)} w2 {tuple(w2.shape)} b2 {tuple(b2.shape)}")
+    the weights are used as bfloat16 for bfloat16 ``x``, as float32 for
+    float32 ``x``); CPU tensors run the plain version."""
+    _check_shapes(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return fused_basic_block_plain(x, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
-        raise ValueError("x must be a contiguous float32 or bfloat16 tensor")
-    if c > MAX_C or c % 4:
-        raise ValueError(f"unsupported C={c} (a multiple of 4, at most {MAX_C})")
+    _check_cuda_x(x, (torch.float32, torch.bfloat16))
+    if x.dtype == torch.bfloat16:
+        params = [t.to(device=x.device) for t in (w1, b1, w2, b2)]
+        return fused_basic_block_packed(x, *pack_block_weights(*params))
+    b, h, w, c = x.shape
     params = [t.to(device=x.device, dtype=torch.float32).contiguous() for t in (w1, b1, w2, b2)]
     from ._build import load_kernel
 
@@ -98,8 +190,7 @@ def fused_basic_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: t
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.launch_fused_basic_block(
         ctypes.c_void_p(x.data_ptr()), *(ctypes.c_void_p(t.data_ptr()) for t in params),
-        ctypes.c_void_p(out.data_ptr()), b, h, w, c, int(x.dtype == torch.bfloat16),
-        ctypes.c_void_p(stream),
+        ctypes.c_void_p(out.data_ptr()), b, h, w, c, ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"fused_basic_block kernel launch failed: cudaError {err}")

@@ -25,8 +25,8 @@ import torch
 
 from .hungarian import hungarian
 
-MAX_M = 32  # candidates per joint (one warp of rows)
-MAX_COLS = 127  # person columns; +1 virtual column = 4 warps
+MAX_M = 32  # candidates per joint: one row per lane of the kernel's warp
+MAX_COLS = 127  # person columns; +1 virtual column = 4 columns a lane
 MAX_E = 8  # embedding dims held in shared memory per person
 
 
@@ -117,7 +117,7 @@ def _checked(cand_ordered: torch.Tensor, joints_order, num_persons: int | None):
 
 
 def _launch(cand_ordered: torch.Tensor, det_thr: float, tag_thr: float, joints_order, p: int):
-    """Launch ``csrc/match_by_tag.cu`` (one block per image) on a CUDA tensor."""
+    """Launch ``csrc/match_by_tag.cu`` (one warp per image) on a CUDA tensor."""
     b, k, m, f = cand_ordered.shape
     e = f - 3
     if cand_ordered.device.type != "cuda":
@@ -170,7 +170,7 @@ def match_by_tag_per_image(cand_ordered: torch.Tensor, det_thr: float = 0.1, tag
     """The per-image grouping entry, with the signature of
     ``human_pose_tpu/ops/pallas_match.py::match_by_tag_pallas`` (one image
     per grid cell there; its grid asks ``K*(3+E) <= 128``). The CUDA kernel
-    already runs one block per image, so this is the same launch as
+    already runs one warp per image, so this is the same launch as
     ``match_by_tag_batched`` with its own count
     (``match_by_tag_per_image.launches``); CPU tensors run the plain
     version."""

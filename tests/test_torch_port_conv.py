@@ -5,7 +5,9 @@ interpret mode), and the fold carried across the weight bridge.
 Both frameworks sum the convolutions in their own orders, so block outputs
 agree to 1e-4, the JAX package's own bound (``tests/test_pallas_conv.py``);
 the folded weights are the same float32 operations on the same values, held
-to 1e-6.
+to 1e-6. With bfloat16 input and weights the intermediate activation is
+rounded to bfloat16, and a value at a rounding boundary can round either
+way under another summation order: 2**-6 of the output scale.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from human_pose_tpu_torch.ops import (
     fold_basic_block, fold_conv_bn, fused_basic_block, fused_basic_block_plain,
     reference_basic_block,
 )
+from human_pose_tpu_torch.ops.cuda_conv import chunk_channels, pack_block_weights, padded_channels
 from human_pose_tpu_torch.utils import weights
 from tests.test_torch_port_models import SHALLOW, _randomize, _to_tensors
 
@@ -67,6 +70,61 @@ def test_fused_block_bf16_casts_the_intermediate():
                                               padding=1))
     assert not torch.equal(y, y.to(torch.bfloat16).float())  # the cast is not a no-op here
     assert torch.equal(got, fused_basic_block_plain(xb, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16, 16), (2, 8, 12, 12)])
+def test_fused_block_bf16_weights_matches_jax(shape):
+    """bf16 x and bf16 weights (float32 biases): the port's plain block vs
+    the Pallas kernel in interpret mode, whose tap matmuls take bf16 x bf16
+    into float32."""
+    x, w1, b1, w2, b2 = _block_params(shape, seed=2)
+    xb, w1b, w2b = (jnp.asarray(a, jnp.bfloat16) for a in (x, w1, w2))
+    want = np.asarray(jax_fused_basic_block(xb, w1b, jnp.asarray(b1), w2b, jnp.asarray(b2),
+                                            interpret=True).astype(jnp.float32))
+    to_t = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)  # noqa: E731
+    got = fused_basic_block(to_t(xb), to_t(w1b), torch.from_numpy(b1), to_t(w2b), torch.from_numpy(b2))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+    assert float(np.abs(got.float().numpy() - want).max()) <= 2 ** -6 * float(np.abs(want).max())
+
+
+def test_fused_block_plain_rounds_weights_for_bf16_only():
+    """bf16 x: the plain block multiplies bf16-rounded weights (biases stay
+    float32); float32 x: the weights are used as they are."""
+    x, w1, b1, w2, b2 = [torch.from_numpy(a) for a in _block_params((2, 8, 8, 16), seed=3)]
+    r1, r2 = (w.to(torch.bfloat16).to(torch.float32) for w in (w1, w2))
+    assert not torch.equal(r1, w1)
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(fused_basic_block_plain(xb, w1, b1, w2, b2), fused_basic_block_plain(xb, r1, b1, r2, b2))
+    assert torch.equal(fused_basic_block_plain(x, w1, b1, w2, b2), reference_basic_block(x, w1, b1, w2, b2))
+    assert not torch.equal(fused_basic_block_plain(x, w1, b1, w2, b2), fused_basic_block_plain(x, r1, b1, r2, b2))
+
+
+@pytest.mark.parametrize("c", [12, 32, 48, 128])
+def test_pack_block_weights_layout(c):
+    """The packed weights unpack to the bf16 HWIO weights, padded channels
+    are zero, each element sits where the kernel's descriptors read it, and
+    the biases are laid out [b1; b2] with zeros past C."""
+    rng = np.random.RandomState(c)
+    w1, w2 = (torch.from_numpy(rng.randn(3, 3, c, c).astype(np.float32)) for _ in range(2))
+    b1, b2 = (torch.from_numpy(rng.randn(c).astype(np.float32)) for _ in range(2))
+    wpack, bias = pack_block_weights(w1, b1, w2, b2)
+    cp, kch = padded_channels(c), chunk_channels(padded_channels(c))
+    assert wpack.dtype == torch.bfloat16 and wpack.numel() == 2 * 9 * cp * cp
+    # unpack: [conv, tap, kc, ks, ng, kh, n8, k8] -> [conv, tap, ci, co]
+    w = wpack.reshape(2, 9, cp // kch, kch // 16, cp // 8, 2, 8, 8).permute(0, 1, 2, 3, 5, 7, 4, 6)
+    w = w.reshape(2, 3, 3, cp, cp)
+    assert torch.equal(w[0, ..., :c, :c], w1.to(torch.bfloat16))
+    assert torch.equal(w[1, ..., :c, :c], w2.to(torch.bfloat16))
+    assert int((wpack != 0).sum()) == int((w1 != 0).sum() + (w2 != 0).sum())
+    for conv, w in enumerate((w1, w2)):
+        for tap, ci, co in ((0, 0, 0), (4, c - 1, c - 2), (8, c // 2 + 1, c // 3), (7, 9, c - 1)):
+            kc, k = divmod(ci, kch)
+            ks, kk = divmod(k, 16)
+            ng, n8 = divmod(co, 8)
+            chunk = (conv * 9 + tap) * (cp // kch) + kc
+            off = chunk * kch * cp + ((ks * (cp // 8) + ng) * 2 + kk // 8) * 64 + n8 * 8 + kk % 8
+            assert wpack[off] == w.reshape(9, c, c)[tap, ci, co].to(torch.bfloat16)
+    assert torch.equal(bias[0, :c], b1) and torch.equal(bias[1, :c], b2) and not bias[:, c:].any()
 
 
 def test_fused_block_rejects_bad_shapes():

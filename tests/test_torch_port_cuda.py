@@ -9,7 +9,9 @@ so it runs on a machine without them:
 The decode kernels repeat their plain versions' float32 arithmetic step for
 step, so those comparisons are exact. The fused BasicBlock sums its
 convolutions in another order than cuDNN: float32 within 1e-4 (TF32 off),
-bfloat16 within a few bf16 ulps of the output's scale.
+bfloat16 (bf16 operands on the tensor cores) within 2**-6 of the output's
+scale, a few bf16 ulps: an intermediate value at a bf16 rounding boundary
+can round either way.
 """
 
 from __future__ import annotations
@@ -149,6 +151,43 @@ def test_refine_phase_kernel_tie_first(dev):
     assert int(idx.abs().max()) == 0 and bool((val == 1).all())
 
 
+@pytest.mark.parametrize("e", [1, 2])
+@pytest.mark.parametrize("p", [30, 50, 64, 127])
+def test_match_kernel_columns_per_lane(dev, e, p):
+    """1 to 4 assignment columns per lane (P = 30, 50, 64, 127: max(M, P) + 1
+    columns over 32 lanes), with more persons than one joint's candidates so
+    that the person count grows past a warp."""
+    cand = _candidates(p + e, 4, 17, 30, e, 30)
+    rng = np.random.RandomState(p)
+    cand[..., 3:] += torch.from_numpy(rng.randn(4, 17, 1, e).astype(np.float32) * 6)  # new persons per joint
+    want_j, want_c = match_by_tag_batched_plain(cand, 0.1, 1.0, JOINTS_ORDER, p)
+    got_j, got_c = match_by_tag_batched(cand.to(dev), 0.1, 1.0, JOINTS_ORDER, p)
+    torch.cuda.synchronize()
+    assert int(want_c.max()) == p
+    assert torch.equal(got_c.cpu(), want_c)
+    assert torch.equal(got_j.cpu(), want_j)
+
+
+@pytest.mark.parametrize("e", [1, 2])
+def test_match_kernel_ties(dev, e):
+    """Equal scores and dyadic tags on a coarse grid: many costs tie, so the
+    argmin's lowest-column rule decides most assignments."""
+    rng = np.random.RandomState(e)
+    b, k, m = 4, 17, 30
+    tags = rng.randint(0, 6, (b, k, m, e)).astype(np.float32) * 0.5
+    scores = np.full((b, k, m), 0.5, np.float32)
+    scores[:, :, m - 4:] = 0.0  # a few invalid rows
+    coords = rng.randint(0, 64, (b, k, m, 2)).astype(np.float32)
+    cand = torch.from_numpy(np.concatenate([coords, scores[..., None], tags], axis=-1)[:, list(JOINTS_ORDER)]
+                            .copy())
+    for p in (30, 40):
+        want_j, want_c = match_by_tag_batched_plain(cand, 0.1, 1.0, JOINTS_ORDER, p)
+        got_j, got_c = match_by_tag_batched(cand.to(dev), 0.1, 1.0, JOINTS_ORDER, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got_c.cpu(), want_c)
+        assert torch.equal(got_j.cpu(), want_j)
+
+
 def test_match_per_image_kernel_equals_plain_and_batched(dev):
     cand = _candidates(7, 6, 17, 30, 2, 20)
     want_j, want_c = match_by_tag_batched_plain(cand, 0.1, 1.0, JOINTS_ORDER, 30)
@@ -162,9 +201,18 @@ def test_match_per_image_kernel_equals_plain_and_batched(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 32, 32, 32), (2, 16, 16, 64), (1, 8, 12, 128), (2, 8, 8, 256),
-                                   (1, 5, 7, 12)])
+@pytest.mark.parametrize("shape", [
+    (2, 32, 32, 32), (2, 16, 16, 64), (1, 8, 12, 128), (2, 8, 8, 256), (1, 5, 7, 12),
+    # the four W32 branch shapes, and H, W off the tile grid with C = 12, 48 (padded to 16, 64)
+    (2, 128, 128, 32), (2, 64, 64, 64), (2, 32, 32, 128), (2, 16, 16, 256),
+    (2, 19, 9, 12), (1, 21, 37, 48), (1, 9, 23, 128), (1, 13, 11, 256),
+])
 def test_fused_basic_block_kernel_vs_plain(dev, shape, dtype):
+    """float32 on CUDA cores, bfloat16 on the tensor cores (against the
+    plain version on bf16-rounded weights); for bfloat16 a second call on
+    weights packed once gives the same bits."""
+    from human_pose_tpu_torch.ops.cuda_conv import fused_basic_block_packed, pack_block_weights
+
     rng = np.random.RandomState(shape[-1])
     c = shape[-1]
     x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
@@ -172,12 +220,16 @@ def test_fused_basic_block_kernel_vs_plain(dev, shape, dtype):
     b1, b2 = (rng.randn(c).astype(np.float32) * 0.1 for _ in range(2))
     ws = [torch.from_numpy(a).to(dev) for a in (w1, b1, w2, b2)]
     want = fused_basic_block_plain(x, *ws).float()
+    before = fused_basic_block.launches
     got = fused_basic_block(x, *ws)
     torch.cuda.synchronize()
+    assert fused_basic_block.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     err = float((got.float() - want).abs().max())
     tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * float(want.abs().max())
     assert err <= tol, (err, tol)
+    if dtype == torch.bfloat16:
+        assert torch.equal(fused_basic_block_packed(x, *pack_block_weights(*ws)), got)
 
 
 def test_decode_fused_card_equals_cpu(dev):
