@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --refine-only   # the dense refine alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -11,10 +12,13 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
 1. device: card name and power limit, TF32 switches
 2. build: all five CUDA libraries from ``human_pose_tpu_torch/csrc`` (one
    nvcc per source, in parallel), with ptxas registers and spills of every
-   kernel and the count of HGMMA (tensor-core) instructions in the fused
-   BasicBlock's library
+   kernel, the count of HGMMA (tensor-core) instructions in the fused
+   BasicBlock's library and of FRND (round-to-integer, conversion unit)
+   instructions in each kernel of the dense refine's
 3. kernel parity at main-path shapes, CUDA kernel vs its plain version, both
-   on the card: the dense refine and the grouping; the fused aggregate, the
+   on the card: the dense refine (E=1, E=2, ties within and across its row
+   splits, a ragged row length with mixed counts) and the grouping; the
+   fused aggregate, the
    phase refine (E=1, E=2, a tie case) and the fused BasicBlock at the four
    W32 branch shapes (float32, bfloat16)
 4. main path (forward + decode) and the dense-scene decode, each with the
@@ -29,12 +33,20 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    folded and run through the fused block in float32 and in bfloat16
 6. timing: forward, decode and img/s (CUDA events and host wall clock), a
    per-kernel profiler breakdown of one forward+decode with the device's
-   idle share, fused vs dense decode, each kernel vs its plain version, its
-   bound and, where one exists, a library call
+   idle share and of one fused and one dense decode alone, fused vs dense
+   decode, each kernel vs its plain version, its bound and, where one
+   exists, a library call
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
 and prints no result.
+
+``--refine-only`` is the short loop for work on the dense refine kernel: it
+builds the refine and the grouping, runs the refine's parity cases, drives
+the main path and the dense scene once to take the refine's inputs, and
+times the kernel on them (and over a sweep of row splits); its last line is
+one JSON object of those times with the card's name and power limit. It
+prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -136,31 +148,74 @@ def log_build(build) -> None:
 
 
 def kernel_name(mangled: str) -> str | None:
-    """``name<N>`` of a mangled ``..._kernel`` symbol: the length-prefixed
-    identifier that ends in ``kernel``, with its first integer template
-    argument."""
+    """``name<N>`` of a mangled ``..._kernel`` symbol: the last of the
+    length-prefixed identifiers after ``_Z`` / ``_ZN`` (namespaces first),
+    with its first integer template argument."""
     import re
 
-    for m in re.finditer(r"\d+", mangled):
-        ident = mangled[m.end():m.end() + int(m.group())]
-        if ident.endswith("kernel"):
-            arg = re.match(r"ILi(\d+)E", mangled[m.end() + len(ident):])
-            return f"{ident}<{arg.group(1)}>" if arg else ident
-    return None
+    start = mangled.find("_Z")
+    if start < 0:
+        return None
+    pos = start + (3 if mangled.startswith("_ZN", start) else 2)
+    ident = None
+    while (m := re.match(r"\d+", mangled[pos:])):
+        ident = mangled[pos + m.end():pos + m.end() + int(m.group())]
+        pos += m.end() + len(ident)
+    if ident is None or not ident.endswith("kernel"):
+        return None
+    arg = re.match(r"ILi(\d+)E", mangled[pos:])
+    return f"{ident}<{arg.group(1)}>" if arg else ident
 
 
-def count_sass(build, name: str, opcode: str) -> int | None:
-    """Instructions of ``opcode`` in the SASS of library ``name`` (None when
-    the toolkit has no cuobjdump)."""
+def dump_sass(build, name: str) -> str | None:
+    """The SASS of library ``name`` (None when the toolkit has no cuobjdump)."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         log("cuobjdump not found: SASS not inspected")
         return None
-    sass = subprocess.run([tool, "--dump-sass", str(build._lib_path(name))], capture_output=True,
+    return subprocess.run([tool, "--dump-sass", str(build._lib_path(name))], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    return sum(opcode in line for line in sass.splitlines())
+
+
+def count_sass(build, name: str, opcode: str) -> int | None:
+    """Instructions of ``opcode`` in the SASS of library ``name`` (None when
+    the toolkit has no cuobjdump)."""
+    sass = dump_sass(build, name)
+    return None if sass is None else sum(opcode in line for line in sass.splitlines())
+
+
+def sass_by_kernel(sass: str, opcodes) -> dict:
+    """``{kernel: {opcode: count, "all": instructions}}`` of a SASS dump, one
+    entry per kernel function (template instances told apart)."""
+    import re
+
+    out, entry = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            entry = out.setdefault(kernel_name(m.group(1)) or m.group(1),
+                                   {"all": 0, **{op: 0 for op in opcodes}})
+        elif entry is not None and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            entry["all"] += 1
+            for op in opcodes:
+                entry[op] += bool(re.search(rf"\b{op}\b", line))
+    return out
+
+
+def log_refine_sass(build) -> dict:
+    """Log, per kernel of the dense refine's library, its instructions and
+    how many of them are FRND (what ``rintf`` compiles to), FADD, FMNMX and
+    shared-memory loads. Returns the counts."""
+    sass = dump_sass(build, "refine_argmax")
+    if sass is None:
+        return {}
+    counts = sass_by_kernel(sass, ("FRND", "FADD", "FMNMX", "LDS", "BRA"))
+    for kname, c in counts.items():
+        log(f"  refine_argmax/{kname} SASS: {c['all']} instructions, FRND {c['FRND']}, "
+            f"FADD {c['FADD']}, FMNMX {c['FMNMX']}, LDS {c['LDS']}, BRA {c['BRA']}")
+    return counts
 
 
 def nvidia_smi_line() -> str:
@@ -389,12 +444,76 @@ def conv_bound(x):
     return bound(nbytes, 2 * 2 * 9 * c * c * h * w * b, peak)
 
 
+def refine_scene_parity(dev, rng, kpts, tags) -> float:
+    """The dense refine vs its plain version on a scene at main-path shapes
+    with mixed counts, both on the card: exact on every p < counts. Returns
+    the largest |kernel - plain|."""
+    import torch
+
+    from human_pose_tpu_torch.ops import cuda_decode
+
+    e = tags.shape[2]
+    hm, tg, prev, counts = refine_inputs(rng, kpts, tags, dev)
+    got = cuda_decode.refine_argmax_batch(hm, tg, prev, counts)
+    want = cuda_decode.refine_argmax_batch_plain(hm, tg, prev, counts)
+    torch.cuda.synchronize()
+    mask = torch.arange(M, device=dev)[None, None, :] < counts[:, None, None].long()
+    bad = int(((got != want) & mask).sum())
+    log(f"refine E={e}: {int(mask.sum()) * K} (b,k,p) slots, {bad} mismatches on p < counts")
+    if bad:
+        raise AssertionError(f"refine kernel disagrees with plain on {bad} slots (E={e})")
+    return float(((got - want).abs() * mask).max())
+
+
+def refine_edge_parity(dev) -> None:
+    """The dense refine's edge cases on the card: a constant map (every
+    position ties, the first must win), two equal maxima in different row
+    splits (the lower index must win), and a ragged row length (no multiple
+    of 4, rows off 16-byte boundaries) with counts 0..P at P = 32, the last
+    equal to the plain version."""
+    import inspect
+
+    import torch
+
+    from human_pose_tpu_torch.ops import cuda_decode
+
+    # an earlier version of the wrapper (timed beside this one) has no splits
+    can_split = "splits" in inspect.signature(cuda_decode.refine_argmax_batch).parameters
+    rng = np.random.default_rng(SEED + 2)  # its own stream: the other phases' data stay as they were
+    hw = 128 * 128
+    hm = torch.ones((2, K, hw), device=dev)
+    tg = torch.zeros((2, K, 1, hw), device=dev)
+    prev = torch.zeros((2, M, 1), device=dev)
+    counts = torch.tensor([M, 5], dtype=torch.int32, device=dev)
+    if int(cuda_decode.refine_argmax_batch(hm, tg, prev, counts).abs().max()) != 0:
+        raise AssertionError("refine tie case: first maximum not chosen")
+    hm = torch.from_numpy(rng.random((2, K, hw), dtype=np.float32)).to(dev)
+    first, second = 4095, 3 * hw // 4 + 1  # in the first and the last of 4 splits
+    hm[..., first] = 2.0
+    hm[..., second] = 2.0
+    for splits in ((None, 4, 3) if can_split else (None,)):
+        kw = {} if splits is None else {"splits": splits}
+        got = cuda_decode.refine_argmax_batch(hm, tg, prev, counts, **kw)
+        if not (bool((got[0] == first).all()) and bool((got[1, :, :5] == first).all())):
+            raise AssertionError(f"refine tie across splits ({splits}): the lower index did not win")
+    b, k, hw, p = 6, 5, 96 * 160 + 3, 32
+    hm = torch.from_numpy(rng.random((b, k, hw), dtype=np.float32)).to(dev)
+    tg = torch.from_numpy(rng.standard_normal((b, k, 2, hw), dtype=np.float32) * 2).to(dev)
+    prev = torch.from_numpy(rng.standard_normal((b, p, 2), dtype=np.float32) * 2).to(dev)
+    counts = torch.tensor([0, 1, 8, 9, 30, 32], dtype=torch.int32, device=dev)
+    got = cuda_decode.refine_argmax_batch(hm, tg, prev, counts)
+    if not torch.equal(got, cuda_decode.refine_argmax_batch_plain(hm, tg, prev, counts)):
+        raise AssertionError("refine ragged-HW, mixed-counts case differs from plain")
+    log("parity: refine ties (constant map; equal maxima in two splits), ragged HW "
+        f"{hw} with counts {counts.tolist()} exact")
+
+
 def phase_parity(dev, rng):
     """CUDA kernels vs their plain versions at main-path shapes. Returns the
     largest |kernel - plain| per kernel and the scenes it made."""
     import torch
 
-    from human_pose_tpu_torch.ops import cuda_decode, cuda_match
+    from human_pose_tpu_torch.ops import cuda_match
 
     errs = {"refine_argmax": 0.0, "match_by_tag": 0.0}
     scenes = {}
@@ -402,18 +521,7 @@ def phase_parity(dev, rng):
         log(f"scene bs{BATCH} {SIZE}^2 E={e}, {N_PERSONS} persons ...")
         kpts, tags = make_scene(rng, BATCH, SIZE, SIZE, e)
         scenes[e] = (kpts, tags)
-
-        hm, tg, prev, counts = refine_inputs(rng, kpts, tags, dev)
-        got = cuda_decode.refine_argmax_batch(hm, tg, prev, counts)
-        want = cuda_decode.refine_argmax_batch_plain(hm, tg, prev, counts)
-        torch.cuda.synchronize()
-        mask = torch.arange(M, device=dev)[None, None, :] < counts[:, None, None].long()
-        bad = int(((got != want) & mask).sum())
-        errs["refine_argmax"] = max(errs["refine_argmax"],
-                                    float(((got - want).abs() * mask).max()))
-        log(f"refine E={e}: {int(mask.sum()) * K} (b,k,p) slots, {bad} mismatches on p < counts")
-        if bad:
-            raise AssertionError(f"refine kernel disagrees with plain on {bad} slots (E={e})")
+        errs["refine_argmax"] = max(errs["refine_argmax"], refine_scene_parity(dev, rng, kpts, tags))
 
         cand, order = match_inputs(kpts, tags, dev)
         j_got, c_got = cuda_match.match_by_tag_batched(cand, DET_THR, TAG_THR, order, M)
@@ -433,16 +541,8 @@ def phase_parity(dev, rng):
         if int(c_got.min()) < M or n_valid < BATCH * K * M * 0.9:
             raise AssertionError(f"scene not dense enough: counts {c_got.tolist()}, {n_valid} valid rows")
 
-    # constant-map tie case: every position ties, the first (0) must win
-    hw = 64 * 64
-    hm = torch.ones((2, K, hw), device=dev)
-    tg = torch.zeros((2, K, 1, hw), device=dev)
-    prev = torch.zeros((2, M, 1), device=dev)
-    counts = torch.tensor([M, 5], dtype=torch.int32, device=dev)
-    got = cuda_decode.refine_argmax_batch(hm, tg, prev, counts)
-    if int(got.abs().max()) != 0:
-        raise AssertionError("refine tie case: first maximum not chosen")
-    log("parity: refine exact on p < counts (E=1,2, tie case); match joints/count exact (E=1,2)")
+    refine_edge_parity(dev)
+    log("parity: refine exact on p < counts (E=1,2, edge cases); match joints/count exact (E=1,2)")
     return errs, scenes
 
 
@@ -603,9 +703,81 @@ def dense_stage_inputs(kpts, tags, dev):
     return stages, [torch.from_numpy(tags[:, :, 0]).to(dev)]
 
 
+def refine_only(dev, rng, smi: str) -> int:
+    """The short loop for the dense refine: build, SASS counts, parity, then
+    its time on the main path's and the dense scene's inputs and over a
+    sweep of row splits. Prints one JSON object last."""
+    import inspect
+
+    import torch
+
+    from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
+    from human_pose_tpu_torch.ops import _build, cuda_decode, decode_batch
+
+    secs = _build.build_kernels(("refine_argmax", "match_by_tag"))
+    log(f"build: per kernel {secs}")
+    log_build(_build)
+    sass = log_refine_sass(_build)
+    kpts, tags = make_scene(rng, BATCH, SIZE, SIZE, 1)
+    refine_scene_parity(dev, rng, kpts, tags)
+    refine_edge_parity(dev)
+
+    model = HigherHRNet(num_kpts=K, C=32, device=dev)
+    init_flax_default_(model, torch.Generator().manual_seed(SEED))
+    model.eval()
+    images = torch.from_numpy(rng.standard_normal((BATCH, 3, SIZE, SIZE), dtype=np.float32)).to(dev)
+    stages_d, tags_d = dense_stage_inputs(kpts, tags, dev)
+
+    def decode(stages, tags_list):
+        return decode_batch(stages, tags_list, (SIZE, SIZE), max_num_people=M,
+                            det_thr=DET_THR, tag_thr=TAG_THR)
+
+    def infer():
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            hms, tg = model(images)
+        return decode(hms, [tg])
+
+    main_in = record_kernel_inputs(infer)["refine_argmax"]
+    dense_in = record_kernel_inputs(lambda: decode(stages_d, tags_d))["refine_argmax"]
+    refine = cuda_decode.refine_argmax_batch
+    for what, args in (("main", main_in), ("dense scene", dense_in)):
+        if not torch.equal(refine(*args), cuda_decode.refine_argmax_batch_plain(*args)):
+            raise AssertionError(f"refine differs from plain on the {what} inputs")
+    warm_up(lambda: (refine(*main_in), torch.cuda.synchronize()), 2.0)
+    result = {"card": smi, "active_persons": int(main_in[3].sum()),
+              "ms_main": cuda_ms(lambda: refine(*main_in), iters=20),
+              "ms_dense_scene": cuda_ms(lambda: refine(*dense_in), iters=20),
+              "bound_ms": refine_bound(*main_in)[0], "ms_main_by_splits": {},
+              "sass": {k: v for k, v in sass.items() if k.endswith("<1>")}}
+    if "splits" in inspect.signature(refine).parameters:
+        for splits in (1, 2, 4, 8, 12, 16, 24, 32, 64):
+            result["ms_main_by_splits"][splits] = cuda_ms(
+                lambda: refine(*main_in, splits=splits), iters=20)
+    result["ms_main_again"] = cuda_ms(lambda: refine(*main_in), iters=20)
+    for _ in range(1500):  # about a second of queued launches: the SM clock under this load
+        refine(*main_in)
+    result["clocks_sm_under_load"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    torch.cuda.synchronize()
+    log(f"refine: main {result['ms_main']:.4f} ms (again {result['ms_main_again']:.4f}), dense scene "
+        f"{result['ms_dense_scene']:.4f} ms, bound {result['bound_ms']:.4f} ms; by splits "
+        f"{ {k: round(v, 4) for k, v in result['ms_main_by_splits'].items()} }; SM clock, max, "
+        f"power under load: {result['clocks_sm_under_load']}  [{smi}]")
+    print(json.dumps({"refine_only": result}), flush=True)
+    return 0
+
+
 def main() -> int:
+    import argparse
+
     import torch
     import torch.nn.functional as F
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--refine-only", action="store_true",
+                        help="build, check and time the dense refine kernel alone")
+    args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -638,6 +810,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     gen = torch.Generator().manual_seed(SEED + 1)
+    if args.refine_only:
+        return refine_only(dev, rng, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -648,6 +822,7 @@ def main() -> int:
     log(f"fused_basic_block: {hgmma} HGMMA instructions in its SASS (cuobjdump --dump-sass)")
     if hgmma == 0:
         raise AssertionError("fused_basic_block: no HGMMA in the built library: the tensor cores are unused")
+    refine_sass = log_refine_sass(_build)
 
     # 3. kernel parity
     errs, scenes = phase_parity(dev, rng)
@@ -863,6 +1038,9 @@ def main() -> int:
             f"wall (idle share {max(0.0, 1 - busy_ms / wall_ms):.3f})")
     fused_busy_ms, fused_groups = profile_breakdown(lambda: fused(hms, [tags]))
     log(f"profile of one fused decode of the forward's outputs: device busy {fused_busy_ms} ms")
+    dense_busy_ms, dense_groups = profile_breakdown(lambda: dense(hms, [tags]))
+    log(f"profile of one dense decode of the forward's outputs: device busy {dense_busy_ms} ms of "
+        f"{dec_ms:.3f} ms between CUDA events (the rest is the host: launches and syncs)")
 
     # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
@@ -888,7 +1066,10 @@ def main() -> int:
         cuda_ms(lambda: cuda_decode.refine_argmax_batch_plain(hm, tg, prev, counts), iters=2),
         refine_bound(hm, tg, prev, counts), None,
         ms_dense_scene=cuda_ms(lambda: cuda_decode.refine_argmax_batch(*dense_in["refine_argmax"]), iters=20),
-        shape=f"B{BATCH} K{K} HW{SIZE * SIZE} E{tg.shape[2]} P{M}", active_persons=int(counts.sum())))
+        shape=f"B{BATCH} K{K} HW{SIZE * SIZE} E{tg.shape[2]} P{M}", active_persons=int(counts.sum()),
+        splits=cuda_decode.refine_splits(BATCH * K, SIZE * SIZE,
+                                         torch.cuda.get_device_properties(dev).multi_processor_count),
+        sass=refine_sass))
     cand, _, _, order, persons = main_in["match_by_tag"]
     kernels.append(row(
         "match_by_tag", "main", "exact joints and count",
@@ -977,6 +1158,8 @@ def main() -> int:
                               "img_per_s": BATCH / wall_ms * 1e3, "device_busy_ms": busy_ms,
                               "device_busy_groups_ms": busy_groups,
                               "fused_decode_busy_groups_ms": fused_groups,
+                              "dense_decode_busy_ms": dense_busy_ms,
+                              "dense_decode_busy_groups_ms": dense_groups,
                               "fused_vs_dense": {"person_slots_differ": persons_differ,
                                                  "joints_differ": joints_differ},
                               "card": smi}}), flush=True)

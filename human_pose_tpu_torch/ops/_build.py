@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "match_by_tag": {"launch_match_by_tag": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]},
-    "refine_argmax": {"launch_refine_argmax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "refine_argmax": {"launch_refine_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
     "fused_aggregate": {"launch_fused_aggregate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "refine_argmax_phase": {"launch_refine_argmax_phase":
                             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},

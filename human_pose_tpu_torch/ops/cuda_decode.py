@@ -10,7 +10,11 @@ order. Persons ``p >= counts[b]`` are skipped and get 0 — callers never
 consume them. The heatmap value at the argmax is gathered by the caller.
 
 ``refine_argmax_batch`` launches ``csrc/refine_argmax.cu`` on CUDA tensors
-and runs ``refine_argmax_batch_plain`` on CPU tensors.
+and runs ``refine_argmax_batch_plain`` on CPU tensors. The kernel splits each
+``(b, k)`` row over several blocks (``refine_splits``) so that the grid
+fills the card whatever ``B * K`` is; the blocks' partial results meet in
+scratch memory allocated here and are merged exactly, so the split changes
+no result.
 """
 
 from __future__ import annotations
@@ -21,6 +25,16 @@ import torch
 
 MAX_P = 32  # persons held in registers per thread
 MAX_E = 4  # embedding dims with a compiled kernel instance
+BLOCKS_PER_SM = 24  # blocks the grid aims at per multiprocessor: many short waves, a short tail
+MIN_SPLIT_PIXELS = 4096  # a block's least share of a row: 4 steps of 256 threads x 4 pixels
+
+
+def refine_splits(rows: int, hw: int, sm_count: int) -> int:
+    """Blocks that share one of the ``rows = B * K`` rows of ``hw`` pixels:
+    enough for ``BLOCKS_PER_SM`` blocks per multiprocessor, as long as each
+    keeps ``MIN_SPLIT_PIXELS`` pixels; at most the grid's 65535."""
+    want = -(-BLOCKS_PER_SM * sm_count // rows)
+    return max(1, min(want, hw // MIN_SPLIT_PIXELS, 65535))
 
 
 def tag_distance(tags: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
@@ -51,12 +65,14 @@ def refine_argmax_batch_plain(hm: torch.Tensor, tags: torch.Tensor, prev: torch.
 
 
 def refine_argmax_batch(hm: torch.Tensor, tags: torch.Tensor, prev: torch.Tensor,
-                        counts: torch.Tensor) -> torch.Tensor:
+                        counts: torch.Tensor, splits: int | None = None) -> torch.Tensor:
     """``hm [B, K, HW]`` f32, ``tags [B, K, E, HW]`` f32, ``prev [B, P, E]``
     f32, ``counts [B]`` i32 -> ``idx [B, K, P]`` i32.
 
     CUDA tensors launch the kernel (counted in ``refine_argmax_batch.launches``);
-    CPU tensors run the plain version."""
+    CPU tensors run the plain version. ``splits`` sets the blocks per row
+    (default ``refine_splits``; tests and timing sweeps set it); the result
+    does not depend on it."""
     b, k, hw = hm.shape
     e = tags.shape[2]
     p = prev.shape[1]
@@ -77,13 +93,21 @@ def refine_argmax_batch(hm: torch.Tensor, tags: torch.Tensor, prev: torch.Tensor
         raise ValueError(f"unsupported sizes P={p} E={e} (P<={MAX_P}, E<={MAX_E})")
     from ._build import load_kernel
 
+    if splits is None:
+        sm_count = torch.cuda.get_device_properties(hm.device).multi_processor_count
+        splits = refine_splits(b * k, hw, sm_count)
+    if not 1 <= splits <= 65535:
+        raise ValueError(f"splits={splits} outside 1..65535")
     lib = load_kernel("refine_argmax")
     idx = torch.empty((b, k, p), dtype=torch.int32, device=hm.device)
+    # the blocks' partial (maximum's key, first group) pairs, merged by the second kernel
+    scratch = torch.empty((2, b * k, splits, p), dtype=torch.int32, device=hm.device)
     stream = torch.cuda.current_stream(hm.device).cuda_stream
     err = lib.launch_refine_argmax(
         ctypes.c_void_p(hm.data_ptr()), ctypes.c_void_p(tags.data_ptr()),
         ctypes.c_void_p(prev.data_ptr()), ctypes.c_void_p(counts.data_ptr()),
-        ctypes.c_void_p(idx.data_ptr()), b, k, hw, e, p, ctypes.c_void_p(stream),
+        ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(scratch.data_ptr()), b, k, hw, e, p,
+        splits, ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"refine_argmax kernel launch failed: cudaError {err}")

@@ -67,26 +67,156 @@ def test_match_kernel_equals_plain(dev, e, m, p, n_persons):
     assert torch.equal(got_j.cpu(), want_j)
 
 
-@pytest.mark.parametrize("e", [1, 2, 3])
-def test_refine_kernel_equals_plain(dev, e):
-    rng = np.random.RandomState(e)
-    b, k, hw, p = 4, 5, 96 * 160, 30
-    hm = torch.from_numpy(rng.rand(b, k, hw).astype(np.float32)).to(dev)
-    tags = torch.from_numpy(rng.randn(b, k, e, hw).astype(np.float32) * 2).to(dev)
-    prev = torch.from_numpy(rng.randn(b, p, e).astype(np.float32) * 2).to(dev)
-    counts = torch.tensor([30, 0, 1, 17], dtype=torch.int32, device=dev)
-    want = refine_argmax_batch_plain(hm, tags, prev, counts)
-    got = refine_argmax_batch(hm, tags, prev, counts)
+def _refine_inputs(seed, b, k, hw, e, p, big_every=0):
+    """Random refine inputs; with ``big_every`` every such pixel's tags are
+    scaled by 1e6, past the range where the kernel rounds by adding 2**23."""
+    rng = np.random.RandomState(seed)
+    hm = rng.rand(b, k, hw).astype(np.float32)
+    tags = rng.randn(b, k, e, hw).astype(np.float32) * 2
+    if big_every:
+        tags[..., ::big_every] *= np.float32(1e6)
+    prev = rng.randn(b, p, e).astype(np.float32) * 2
+    return torch.from_numpy(hm), torch.from_numpy(tags), torch.from_numpy(prev)
+
+
+def refine_rounding_case(hw=1024):
+    """Refine inputs (E=1, one person with tag 0, so the distance of a pixel
+    is its |tag|) that tell a wrong rounding of the distance from a right
+    one: halves at even and odd integers, one ulp below and above each,
+    2**23 - 0.5, 2**23 and beyond. Two rows per distance x, all pixels at
+    -1e30 but two: pixel a has tag x and heatmap rint(x) (difference 0 when
+    x is rounded right), pixel c has tag 0 and heatmap -0.25 in the first
+    row (c wins if x was rounded up too far) and +0.25 in the second (a wins
+    if x was rounded down too far). Returns (hm, tags, prev, counts, want)."""
+    halves = np.array([0.5, 1.5, 2.5, 3.5, 100.5, 101.5, 4194302.5, 4194303.5], np.float32)
+    xs = np.concatenate([
+        halves, np.nextafter(halves, np.float32(0)), np.nextafter(halves, np.float32(np.inf)),
+        np.array([8388607.5, 8388608.0, 8388609.0, 16777218.0, 1e10, 0.49999997, 1048575.5,
+                  1048576.5, 2097151.5], np.float32),
+    ]).astype(np.float32)
+    k = 2 * len(xs)
+    hm = np.full((1, k, hw), -1e30, np.float32)
+    tags = np.zeros((1, k, 1, hw), np.float32)
+    want = np.zeros((1, k, 1), np.int32)
+    for j, x in enumerate(xs):
+        for row, (other, winner) in enumerate(((-0.25, "a"), (0.25, "c"))):
+            r = 2 * j + row
+            a, c = (5 + 7 * j) % hw, (hw - 3 - 5 * j) % hw
+            if row:
+                a, c = c, a
+            tags[0, r, 0, a] = x
+            hm[0, r, a] = np.rint(x)
+            hm[0, r, c] = other
+            want[0, r, 0] = a if winner == "a" else c
+    return (torch.from_numpy(hm), torch.from_numpy(tags), torch.zeros((1, 1, 1)),
+            torch.tensor([1], dtype=torch.int32), torch.from_numpy(want))
+
+
+def _refine_on_card(dev, hm, tags, prev, counts, splits=None):
+    before = refine_argmax_batch.launches
+    got = refine_argmax_batch(hm.to(dev), tags.to(dev), prev.to(dev), counts.to(dev), splits=splits)
     torch.cuda.synchronize()
+    assert refine_argmax_batch.launches == before + 1  # one call, one counted launch
+    return got.cpu()
+
+
+@pytest.mark.parametrize("e", [1, 2, 3, 4])
+def test_refine_kernel_equals_plain(dev, e):
+    """Random maps, some tags past the fast rounding's range, mixed counts."""
+    hm, tags, prev = _refine_inputs(e, 4, 5, 96 * 160, e, 30, big_every=97)
+    counts = torch.tensor([30, 0, 1, 17], dtype=torch.int32)
+    want = refine_argmax_batch_plain(hm, tags, prev, counts)
+    assert torch.equal(_refine_on_card(dev, hm, tags, prev, counts), want)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+@pytest.mark.parametrize("hw", [96 * 160 + 3, 4099, 7, 1])
+@pytest.mark.parametrize("e", [1, 2])
+def test_refine_kernel_ragged_hw(dev, e, hw, splits):
+    """HW that is no multiple of 4 nor of a block's 1024-pixel stride; with
+    an odd HW every row after the first starts off a 16-byte boundary."""
+    hm, tags, prev = _refine_inputs(hw + e, 3, 2, hw, e, 9)
+    counts = torch.tensor([9, 4, 8], dtype=torch.int32)
+    want = refine_argmax_batch_plain(hm, tags, prev, counts)
+    assert torch.equal(_refine_on_card(dev, hm, tags, prev, counts, splits), want)
+
+
+def test_refine_kernel_unaligned_base(dev):
+    """Maps that are contiguous views starting 4 bytes into their storage."""
+    hm, tags, prev = _refine_inputs(11, 2, 3, 4096, 1, 6)
+    counts = torch.tensor([6, 3], dtype=torch.int32)
+    want = refine_argmax_batch_plain(hm, tags, prev, counts)
+    hm_d = torch.empty(hm.numel() + 1, device=dev)[1:].view(hm.shape).copy_(hm)
+    tags_d = torch.empty(tags.numel() + 1, device=dev)[1:].view(tags.shape).copy_(tags)
+    assert hm_d.data_ptr() % 16 == 4 and hm_d.is_contiguous()
+    got = refine_argmax_batch(hm_d, tags_d, prev.to(dev), counts.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("e", [1, 2])
+def test_refine_kernel_person_counts(dev, e):
+    """Every compiled person count (8, 16, 24, 32) and its edges in one
+    batch at P = 32; slots at and past counts[b] are 0."""
+    hm, tags, prev = _refine_inputs(20 + e, 6, 3, 8192, e, 32)
+    counts = torch.tensor([0, 1, 8, 9, 30, 32], dtype=torch.int32)
+    want = refine_argmax_batch_plain(hm, tags, prev, counts)
+    got = _refine_on_card(dev, hm, tags, prev, counts)
     assert torch.equal(got, want)
+    for b, c in enumerate(counts.tolist()):
+        assert not got[b, :, c:].any()
 
 
-def test_refine_kernel_tie_first(dev):
-    hm = torch.ones((2, 3, 4096), device=dev)
-    tags = torch.zeros((2, 3, 1, 4096), device=dev)
-    prev = torch.zeros((2, 8, 1), device=dev)
-    counts = torch.tensor([8, 2], dtype=torch.int32, device=dev)
-    assert int(refine_argmax_batch(hm, tags, prev, counts).abs().max()) == 0
+@pytest.mark.parametrize("splits", [None, 1, 2, 5])
+def test_refine_kernel_tie_first(dev, splits):
+    """A constant map: every pixel ties, in every thread, warp, block and
+    split; pixel 0 must win."""
+    hm = torch.ones((2, 3, 16384))
+    tags = torch.zeros((2, 3, 1, 16384))
+    prev = torch.zeros((2, 8, 1))
+    counts = torch.tensor([8, 2], dtype=torch.int32)
+    assert int(_refine_on_card(dev, hm, tags, prev, counts, splits).abs().max()) == 0
+
+
+# two equal maxima whose pixels lie in: one thread's 4-pixel group, two
+# neighbouring groups, two warps, two steps of a block, two splits (of 4
+# over 16384 pixels), and the row's two ends
+TIE_PAIRS = [(1, 2), (3, 4), (127, 128), (1023, 1024), (4095, 4096), (5, 16383)]
+
+
+@pytest.mark.parametrize("first,second", TIE_PAIRS)
+def test_refine_kernel_tie_lower_index_wins(dev, first, second):
+    hm, tags, prev = _refine_inputs(first, 1, 2, 16384, 1, 3)
+    tags.zero_(), prev.zero_()  # the difference is the heatmap itself
+    hm[..., first] = 2.0
+    hm[..., second] = 2.0
+    counts = torch.tensor([3], dtype=torch.int32)
+    want = refine_argmax_batch_plain(hm, tags, prev, counts)
+    assert int(want.min()) == first and int(want.max()) == first
+    for splits in (1, 4):
+        assert torch.equal(_refine_on_card(dev, hm, tags, prev, counts, splits), want)
+
+
+@pytest.mark.parametrize("hw", [1024, 1027])
+def test_refine_kernel_rounding(dev, hw):
+    """Distances at halves, beside them and past 2**23 round as torch.round
+    does (halves to even)."""
+    hm, tags, prev, counts, want = refine_rounding_case(hw)
+    assert torch.equal(refine_argmax_batch_plain(hm, tags, prev, counts), want)
+    assert torch.equal(_refine_on_card(dev, hm, tags, prev, counts), want)
+
+
+def test_refine_kernel_negative_zero_ties(dev):
+    """-0.0 and +0.0 differences are equal: the lower index wins whichever
+    sign it carries."""
+    hm = torch.full((1, 2, 4096), -1.0)
+    hm[0, 0, 7], hm[0, 0, 2000] = -0.0, 0.0
+    hm[0, 1, 7], hm[0, 1, 2000] = 0.0, -0.0
+    tags = torch.zeros((1, 2, 1, 4096))
+    prev = torch.zeros((1, 1, 1))
+    counts = torch.tensor([1], dtype=torch.int32)
+    want = refine_argmax_batch_plain(hm, tags, prev, counts)
+    assert want.flatten().tolist() == [7, 7]
+    assert torch.equal(_refine_on_card(dev, hm, tags, prev, counts, 2), want)
 
 
 def test_decode_card_equals_cpu(dev):

@@ -26,6 +26,7 @@ from human_pose_tpu_torch.ops import average_stages
 from human_pose_tpu_torch.ops import grouping as tg
 from human_pose_tpu_torch.ops.hungarian import hungarian
 from tests import oracle_decode as oracle
+from tests.test_torch_port_cuda import TIE_PAIRS, refine_rounding_case
 from tests.test_grouping_production import synth_scene
 from tests.test_pallas_match import synth_candidates
 
@@ -124,6 +125,88 @@ def test_refine_argmax_tie_first():
         torch.from_numpy(hm), torch.from_numpy(tags), torch.from_numpy(prev), counts
     )
     assert int(np.asarray(ref).max()) == 0 and int(got.max()) == 0
+
+
+def _jax_refine_plain(hm, tags, prev):
+    """The JAX package's formulation outside Pallas (``ops/grouping.py``
+    ``refine_batch``'s ``per_person``) for any HW: [B, K, P] argmax."""
+    hm, tags, prev = jnp.asarray(hm), jnp.asarray(tags), jnp.asarray(prev)
+    d = tags[:, :, None] - prev[:, None, :, :, None]  # [B, K, P, E, HW]
+    dist = jnp.abs(d[:, :, :, 0]) if tags.shape[2] == 1 else jnp.sqrt(jnp.sum(d ** 2, axis=3))
+    return np.asarray(jnp.argmax(hm[:, :, None] - jnp.round(dist), axis=-1))
+
+
+def _port_refine(hm, tags, prev, counts):
+    return cuda_decode.refine_argmax_batch(
+        torch.from_numpy(hm), torch.from_numpy(tags), torch.from_numpy(prev),
+        torch.from_numpy(np.asarray(counts, np.int32))).numpy()
+
+
+@pytest.mark.parametrize("first,second", TIE_PAIRS)
+def test_refine_argmax_tie_lower_index_matches_jax(first, second):
+    """Two equal maxima (the pairs the card tests place across a thread's
+    pixel group, a warp, a block and a row split): the lower index wins in
+    the port's plain version as in the Pallas kernel."""
+    hm, tags, prev = _refine_case(first, 1, 2, 16384, 1, 3)
+    tags[:], prev[:] = 0, 0
+    hm[..., first] = hm[..., second] = 2.0
+    ref, _ = jax_refine(jnp.asarray(hm), jnp.asarray(tags), jnp.asarray(prev), interpret=True)
+    got = _port_refine(hm, tags, prev, [3])
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    assert (got == first).all()
+
+
+@pytest.mark.parametrize("e", [1, 2])
+@pytest.mark.parametrize("hw", [1, 7, 4099, 96 * 160 + 3])
+def test_refine_argmax_ragged_hw_matches_jax(hw, e):
+    """Row lengths the Pallas kernel does not take (no multiple of 128):
+    against the JAX package's XLA formulation."""
+    hm, tags, prev = _refine_case(hw + e, 3, 2, hw, e, 9)
+    counts = np.array([9, 4, 8], np.int32)
+    ref = _jax_refine_plain(hm, tags, prev)
+    got = _port_refine(hm, tags, prev, counts)
+    for bi, c in enumerate(counts):
+        np.testing.assert_array_equal(got[bi, :, :c], ref[bi, :, :c])
+        assert not got[bi, :, c:].any()
+
+
+@pytest.mark.parametrize("e", [1, 2])
+def test_refine_argmax_person_counts_match_jax(e):
+    """Counts 0, 1, 8, 9, 30, 32 in one batch at P = 32: equal to the Pallas
+    kernel (interpret) on every consumed slot, 0 on the others."""
+    hm, tags, prev = _refine_case(20 + e, 6, 3, 1024, e, 32)
+    counts = np.array([0, 1, 8, 9, 30, 32], np.int32)
+    ref, _ = jax_refine(jnp.asarray(hm), jnp.asarray(tags * 2), jnp.asarray(prev * 2),
+                        jnp.asarray(counts), interpret=True)
+    got = _port_refine(hm, tags * 2, prev * 2, counts)
+    ref = np.asarray(ref)
+    for bi, c in enumerate(counts):
+        np.testing.assert_array_equal(got[bi, :, :c], ref[bi, :, :c])
+        assert not got[bi, :, c:].any()
+
+
+def test_refine_argmax_rounding_matches_jax():
+    """Distances at halves of even and odd integers, one ulp beside them,
+    at 2**23 - 0.5 and beyond: ``torch.round`` and ``jnp.round`` (the Pallas
+    kernel, interpret) pick the same pixels, the ones a right rounding
+    gives."""
+    hm, tags, prev, counts, want = refine_rounding_case(1024)
+    ref, _ = jax_refine(jnp.asarray(hm.numpy()), jnp.asarray(tags.numpy()),
+                        jnp.asarray(prev.numpy()), interpret=True)
+    got = cuda_decode.refine_argmax_batch(hm, tags, prev, counts)
+    np.testing.assert_array_equal(np.asarray(ref), want.numpy())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows,hw,sms,want", [
+    (24 * 17, 512 * 512, 132, 8),  # the main path: 3,264 blocks
+    (1, 512 * 512, 132, 64),  # one row: as many blocks as keep 4096 pixels each
+    (24 * 17, 64 * 64, 132, 1),  # small maps: one block a row
+    (10 ** 6, 512 * 512, 132, 1),  # more rows than blocks wanted
+    (2, 7, 132, 1),
+])
+def test_refine_splits(rows, hw, sms, want):
+    assert cuda_decode.refine_splits(rows, hw, sms) == want
 
 
 def test_refine_wrapper_rejects_bad_shapes():
