@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --refine-only   # the dense refine alone, see the end
+    python3 chip_smoke.py --refine-only        # the dense refine alone, see the end
+    python3 chip_smoke.py --phase-refine-only  # the phase refine alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -14,13 +15,16 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    nvcc per source, in parallel), with ptxas registers and spills of every
    kernel, the count of HGMMA (tensor-core) instructions in the fused
    BasicBlock's library and of FRND (round-to-integer, conversion unit)
-   instructions in each kernel of the dense refine's
+   instructions in each kernel of the dense and the phase refine's
 3. kernel parity at main-path shapes, CUDA kernel vs its plain version, both
    on the card: the dense refine (E=1, E=2, ties within and across its row
    splits, a ragged row length with mixed counts) and the grouping; the
    fused aggregate, the
-   phase refine (E=1, E=2, a tie case) and the fused BasicBlock at the four
-   W32 branch shapes (float32, bfloat16)
+   phase refine (E=1, E=2 on the stage scene; E=1..4, P=1..64 through the
+   person chunks, ragged maps, ties within a group and across row splits,
+   tags past 2**20 and distances past 2**64, planes past 200 KB, a constant
+   map) and the fused BasicBlock at the four W32 branch shapes (float32,
+   bfloat16)
 4. main path (forward + decode) and the dense-scene decode, each with the
    launch counters zeroed just before and exactly one launch per kernel
    required; output checks, card-vs-CPU decode
@@ -47,6 +51,14 @@ the main path and the dense scene once to take the refine's inputs, and
 times the kernel on them (and over a sweep of row splits); its last line is
 one JSON object of those times with the card's name and power limit. It
 prints no ``ok`` line.
+
+``--phase-refine-only`` is the same loop for the phase refine: it builds the
+phase refine, the fused aggregate and the grouping, runs the phase refine's
+parity cases, takes its inputs from the fused decode of the forward's outputs
+and of the stage scene, times the kernel on both and over a sweep of row
+splits, times the fused and the dense decode on both inputs, reads FRND
+counts from the SASS and the SM clock under load, and prints one JSON object
+last (no ``ok`` line).
 """
 
 from __future__ import annotations
@@ -204,18 +216,74 @@ def sass_by_kernel(sass: str, opcodes) -> dict:
     return out
 
 
-def log_refine_sass(build) -> dict:
-    """Log, per kernel of the dense refine's library, its instructions and
-    how many of them are FRND (what ``rintf`` compiles to), FADD, FMNMX and
-    shared-memory loads. Returns the counts."""
-    sass = dump_sass(build, "refine_argmax")
+def log_refine_sass(build, lib: str = "refine_argmax") -> dict:
+    """Log, per kernel of a refine library, its instructions and how many of
+    them are FRND (what ``rintf`` compiles to), FADD, FMNMX, shared-memory
+    loads and branches. Returns the counts."""
+    sass = dump_sass(build, lib)
     if sass is None:
         return {}
     counts = sass_by_kernel(sass, ("FRND", "FADD", "FMNMX", "LDS", "BRA"))
     for kname, c in counts.items():
-        log(f"  refine_argmax/{kname} SASS: {c['all']} instructions, FRND {c['FRND']}, "
+        log(f"  {lib}/{kname} SASS: {c['all']} instructions, FRND {c['FRND']}, "
             f"FADD {c['FADD']}, FMNMX {c['FMNMX']}, LDS {c['LDS']}, BRA {c['BRA']}")
     return counts
+
+
+def hot_loop(sass: str, kernel: str, persons: int, adds_per_person: int) -> dict | None:
+    """Instruction counts of a refine scan kernel's hot loop for ``persons``
+    persons, from a SASS dump: the branch-free block of the fast instance
+    (no FRND, ``adds_per_person * persons`` FADD within 5%) and the smallest
+    loop around it (a backward branch), less the span from its first to its
+    last FRND block (the rintf instance, IEEE sqrtf's fix-up blocks
+    included). None when the dump does not show them."""
+    import re
+
+    insts, labels, cur = [], {}, False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = kernel_name(m.group(1)) == kernel
+            continue
+        if not cur:
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            insts.append((int(m.group(1), 16), m.group(2)))
+        elif (m := re.match(r"\s*(\.L_x_\d+):", line)):
+            labels[m.group(1)] = len(insts)  # index of the next instruction
+
+    def target(text):  # index of a branch's target instruction
+        m = re.search(r"BRA\s+`?\(?(\.L_x_\d+)", text)
+        if m:
+            return labels.get(m.group(1))
+        m = re.search(r"BRA\s+(0x[0-9a-f]+)", text)
+        addr = int(m.group(1), 16) if m else None
+        return next((i for i, (a, _) in enumerate(insts) if a == addr), None)
+
+    cuts = sorted({0, len(insts), *labels.values(),
+                   *(i + 1 for i, (_, t) in enumerate(insts) if re.search(r"\b(BRA|EXIT)\b", t))})
+    blocks = [(a, b) for a, b in zip(cuts, cuts[1:]) if b > a]
+
+    def count(a, b, op):
+        return sum(bool(re.search(rf"\b{op}\b", t)) for _, t in insts[a:b])
+
+    want = adds_per_person * persons
+    fast = [(a, b) for a, b in blocks if count(a, b, "FRND") == 0 and abs(count(a, b, "FADD") - want) <= 0.05 * want]
+    if not fast:
+        return None
+    fa, fb = fast[0]
+    loops = [(t, i) for i, (_, text) in enumerate(insts) if "BRA" in text
+             and (t := target(text)) is not None and t <= fa and i >= fb - 1]
+    if not loops:
+        return None
+    la, lb = min(loops, key=lambda r: r[1] - r[0])
+    frnd = [(a, b) for a, b in blocks if la <= a and b <= lb + 1 and count(a, b, "FRND") > 0]
+    slow = max(b for _, b in frnd) - min(a for a, _ in frnd) if frnd else 0
+    pairs = 4 * persons
+    return {"fast_block": fb - fa, "fast_block_per_pair": (fb - fa) / pairs,
+            "loop_without_rintf": lb + 1 - la - slow, "loop_per_pair": (lb + 1 - la - slow) / pairs,
+            **{op: count(fa, fb, op) for op in ("FADD", "FMNMX", "FSETP", "FSEL", "SEL", "LDS")}}
 
 
 def nvidia_smi_line() -> str:
@@ -471,14 +539,10 @@ def refine_edge_parity(dev) -> None:
     splits (the lower index must win), and a ragged row length (no multiple
     of 4, rows off 16-byte boundaries) with counts 0..P at P = 32, the last
     equal to the plain version."""
-    import inspect
-
     import torch
 
     from human_pose_tpu_torch.ops import cuda_decode
 
-    # an earlier version of the wrapper (timed beside this one) has no splits
-    can_split = "splits" in inspect.signature(cuda_decode.refine_argmax_batch).parameters
     rng = np.random.default_rng(SEED + 2)  # its own stream: the other phases' data stay as they were
     hw = 128 * 128
     hm = torch.ones((2, K, hw), device=dev)
@@ -491,9 +555,8 @@ def refine_edge_parity(dev) -> None:
     first, second = 4095, 3 * hw // 4 + 1  # in the first and the last of 4 splits
     hm[..., first] = 2.0
     hm[..., second] = 2.0
-    for splits in ((None, 4, 3) if can_split else (None,)):
-        kw = {} if splits is None else {"splits": splits}
-        got = cuda_decode.refine_argmax_batch(hm, tg, prev, counts, **kw)
+    for splits in (None, 4, 3):
+        got = cuda_decode.refine_argmax_batch(hm, tg, prev, counts, splits)
         if not (bool((got[0] == first).all()) and bool((got[1, :, :5] == first).all())):
             raise AssertionError(f"refine tie across splits ({splits}): the lower index did not win")
     b, k, hw, p = 6, 5, 96 * 160 + 3, 32
@@ -619,13 +682,67 @@ def fused_parity(dev, rng, q, h2, tags_lo):
         log(f"phase refine E={e}: {gi.numel()} (b,k,p) slots, {bad} idx/val mismatches")
         if bad:
             raise AssertionError(f"phase refine kernel disagrees with plain on {bad} values (E={e})")
+    phase_edge_parity(dev)
+    log("parity: fused aggregate bit-equal; phase refine exact (E=1,2, edge cases)")
+    return errs
+
+
+def phase_edge_parity(dev) -> None:
+    """The phase refine's edge cases on the card, each idx and val equal to
+    the plain version: E=1..4; P=1..32 and 40, 64 through the person chunks;
+    ragged maps and row splits; equal maxima within one 4-pixel group and in
+    two row splits (the lower index must win); tags past 2**20 (the rintf
+    instance) and, at E=1, distances past 2**64 (infinite in the sqrt(d*d)
+    form); E*H4*W4*4 past 200 KB; a constant map (every position ties)."""
+    import torch
+
+    from human_pose_tpu_torch.ops import cuda_aggregate as ca
+
+    rng = np.random.default_rng(SEED + 3)  # its own stream: the other phases' data stay as they were
+
+    def check(what, avg, tl, prev, splits=None):
+        gi, gv = ca.refine_argmax_phase_batch(avg, tl, prev, splits)
+        wi, wv = ca.refine_argmax_phase_batch_plain(avg, tl, prev)
+        torch.cuda.synchronize()
+        if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
+            raise AssertionError(f"phase refine differs from plain: {what} (splits {splits})")
+        return gi
+
+    def inputs(b, h4, w4, e, p, scale=2.0):
+        return (torch.from_numpy(rng.random((b, 3, 4, 4, h4, w4), dtype=np.float32)).to(dev),
+                torch.from_numpy(rng.standard_normal((b, 3, e, h4, w4), dtype=np.float32) * scale).to(dev),
+                torch.from_numpy(rng.standard_normal((b, p, e), dtype=np.float32) * scale).to(dev))
+
+    for e in (1, 2, 3, 4):
+        for splits in (None, 1, 5):
+            check(f"E={e} 24x40 P=30", *inputs(2, 24, 40, e, 30), splits)
+    for p in (1, 2, 29, 31, 32, 40, 64):
+        check(f"P={p}", *inputs(2, 16, 24, 1, p))
+    for h4, w4 in ((13, 37), (5, 1), (9, 300)):
+        for splits in (None, 1, 7):
+            check(f"ragged {h4}x{w4}", *inputs(2, h4, w4, 1, 7), splits)
+    avg, tl, prev = inputs(1, 16, 16, 1, 3)
+    tl.zero_(), prev.zero_()  # the difference is the heatmap itself
+    for (y0, x0), (y1, x1) in (((5, 1), (5, 2)), ((15, 40), (16, 3)), ((2, 6), (63, 63))):
+        a = avg.clone()
+        a[:, :, y0 % 4, x0 % 4, y0 // 4, x0 // 4] = 2.0
+        a[:, :, y1 % 4, x1 % 4, y1 // 4, x1 // 4] = 2.0
+        for splits in (1, 4):
+            if not bool((check(f"tie {(y0, x0)} {(y1, x1)}", a, tl, prev, splits) == y0 * 64 + x0).all()):
+                raise AssertionError(f"phase refine tie {(y0, x0)} vs {(y1, x1)}: the lower index did not win")
+    avg, tl, prev = inputs(2, 16, 24, 1, 30)
+    tl[0, 0, 0, 3:6, 4:9] = 3e6  # groups past 2**20
+    tl[0, 1, 0] = 2e19  # every |d| >= 2**64: all differences -inf, the first pixel wins
+    if int(check("tags past 2**20 and 2**64", avg, tl, prev)[0, 1].max()) != 0:
+        raise AssertionError("phase refine: infinite distances did not give the first pixel")
+    check("person tags past 2**20", avg, tl, prev * 1e6, 3)
+    check("E=4 128x128 (past 200 KB a plane set)", *inputs(1, 128, 128, 4, 30))
     idx, val = ca.refine_argmax_phase_batch(torch.ones((2, K, 4, 4, 32, 32), device=dev),
                                             torch.zeros((2, K, 1, 32, 32), device=dev),
                                             torch.zeros((2, M, 1), device=dev))
     if int(idx.abs().max()) != 0 or not bool((val == 1).all()):
         raise AssertionError("phase refine tie case: first maximum not chosen")
-    log("parity: fused aggregate bit-equal; phase refine exact (E=1,2, tie case)")
-    return errs
+    log("parity: phase refine edge cases exact")
 
 
 def block_weights(gen, c: int, dev):
@@ -707,8 +824,6 @@ def refine_only(dev, rng, smi: str) -> int:
     """The short loop for the dense refine: build, SASS counts, parity, then
     its time on the main path's and the dense scene's inputs and over a
     sweep of row splits. Prints one JSON object last."""
-    import inspect
-
     import torch
 
     from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
@@ -749,10 +864,8 @@ def refine_only(dev, rng, smi: str) -> int:
               "ms_dense_scene": cuda_ms(lambda: refine(*dense_in), iters=20),
               "bound_ms": refine_bound(*main_in)[0], "ms_main_by_splits": {},
               "sass": {k: v for k, v in sass.items() if k.endswith("<1>")}}
-    if "splits" in inspect.signature(refine).parameters:
-        for splits in (1, 2, 4, 8, 12, 16, 24, 32, 64):
-            result["ms_main_by_splits"][splits] = cuda_ms(
-                lambda: refine(*main_in, splits=splits), iters=20)
+    for splits in (1, 2, 4, 8, 12, 16, 24, 32, 64):
+        result["ms_main_by_splits"][splits] = cuda_ms(lambda: refine(*main_in, splits=splits), iters=20)
     result["ms_main_again"] = cuda_ms(lambda: refine(*main_in), iters=20)
     for _ in range(1500):  # about a second of queued launches: the SM clock under this load
         refine(*main_in)
@@ -768,6 +881,98 @@ def refine_only(dev, rng, smi: str) -> int:
     return 0
 
 
+def phase_refine_only(dev, rng, smi: str) -> int:
+    """The short loop for the phase refine: build, SASS counts, parity, then
+    its time on the fused decode's inputs (forward outputs, stage scene) and
+    over a sweep of row splits, and fused vs dense decode on both inputs.
+    Prints one JSON object last."""
+    import torch
+
+    from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
+    from human_pose_tpu_torch.ops import _build, cuda_aggregate, decode_batch, decode_batch_fused
+
+    secs = _build.build_kernels(("refine_argmax_phase", "fused_aggregate", "match_by_tag",
+                                 "refine_argmax"))
+    log(f"build: per kernel {secs}")
+    log_build(_build)
+    sass = log_refine_sass(_build, "refine_argmax_phase")
+    text = dump_sass(_build, "refine_argmax_phase")
+    loop = None if text is None else hot_loop(text, "refine_phase_scan_kernel<1>", M, 16)
+    log(f"phase refine hot loop at E=1, {M} persons (fast instance): {loop}")
+    # FRND only in the rintf instances: 4 pixels x every person count compiled
+    rintf_frnd = {1: 4 * sum(range(2, 33, 2)), 2: 4 * sum(range(8, 33, 8))}
+    for e, want in rintf_frnd.items():
+        got = sass.get(f"refine_phase_scan_kernel<{e}>", {}).get("FRND")
+        log(f"phase refine scan E={e}: FRND {got}; {want} in the rintf instances if none is in the fast ones")
+    q_s, h2_s, t_s = [torch.from_numpy(a).to(dev) for a in make_stage_scene(rng, BATCH, SIZE // 4, SIZE // 4)]
+    fused_parity(dev, rng, q_s, h2_s, t_s)
+
+    model = HigherHRNet(num_kpts=K, C=32, device=dev)
+    init_flax_default_(model, torch.Generator().manual_seed(SEED))
+    model.eval()
+    images = torch.from_numpy(rng.standard_normal((BATCH, 3, SIZE, SIZE), dtype=np.float32)).to(dev)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        hms, tags = model(images)
+    inputs = {"forward": (hms, [tags]), "stage_scene": ([q_s, h2_s], [t_s[:, :, 0]])}
+
+    def fused(stages, tags_list):
+        return decode_batch_fused(stages, tags_list, (SIZE, SIZE), max_num_people=M,
+                                  det_thr=DET_THR, tag_thr=TAG_THR)
+
+    def dense(stages, tags_list):
+        return decode_batch(stages, tags_list, (SIZE, SIZE), max_num_people=M,
+                            det_thr=DET_THR, tag_thr=TAG_THR)
+
+    refine = cuda_aggregate.refine_argmax_phase_batch
+    kin = {what: record_kernel_inputs(lambda a=a: fused(*a))["refine_argmax_phase"]
+           for what, a in inputs.items()}
+    for what, args in kin.items():
+        gi, gv = refine(*args)
+        wi, wv = cuda_aggregate.refine_argmax_phase_batch_plain(*args)
+        if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
+            raise AssertionError(f"phase refine differs from plain on the {what} inputs")
+    main_in = kin["forward"]
+    warm_up(lambda: (refine(*main_in), torch.cuda.synchronize()), 3.0)
+    avg, tl, prev = main_in
+    result = {"card": smi, "shape": f"B{BATCH} K{K} H4 {avg.shape[4]} W4 {avg.shape[5]} "
+                                    f"E{tl.shape[2]} P{prev.shape[1]}",
+              "ms_fused": cuda_ms(lambda: refine(*main_in), iters=20),
+              "ms_fused_scene": cuda_ms(lambda: refine(*kin["stage_scene"]), iters=20),
+              "bound_ms": refine_phase_bound(*main_in)[0], "ms_fused_by_splits": {},
+              "sass": sass}
+    result["splits"] = cuda_aggregate.phase_refine_splits(
+        BATCH * K, avg.shape[4], avg.shape[5], tl.shape[2],
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    for splits in (1, 2, 4, 6, 8, 10, 12, 16, 24, 32, 64):
+        result["ms_fused_by_splits"][splits] = cuda_ms(lambda: refine(*main_in, splits=splits), iters=20)
+    result["ms_fused_again"] = cuda_ms(lambda: refine(*main_in), iters=20)
+    result["hot_loop_e1"] = loop
+    result["frnd_in_rintf_instances"] = rintf_frnd
+    # fused vs dense decode: CUDA events (the host's syncs and launches
+    # included), in turns, and the device's busy time from the profiler
+    result["decode_ms"] = {}
+    for what, a in inputs.items():
+        times = {"fused": [], "dense": []}
+        for name_ in ("fused", "dense", "dense", "fused"):
+            fn = fused if name_ == "fused" else dense
+            times[name_].append(cuda_ms(lambda: fn(*a), iters=5, reps=5))
+        result["decode_ms"][what] = {
+            **times, "fused_busy": profile_breakdown(lambda: fused(*a))[0],
+            "dense_busy": profile_breakdown(lambda: dense(*a))[0]}
+    for _ in range(1000):  # about a second of queued launches: the SM clock under this load
+        refine(*main_in)
+    result["clocks_sm_under_load"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    torch.cuda.synchronize()
+    log(f"phase refine: fused {result['ms_fused']:.4f} ms (again {result['ms_fused_again']:.4f}), stage "
+        f"scene {result['ms_fused_scene']:.4f} ms, bound {result['bound_ms']:.4f} ms; by splits "
+        f"{ {k: round(v, 4) for k, v in result['ms_fused_by_splits'].items()} }; decode fused vs dense "
+        f"{result['decode_ms']}; SM clock, max, power under load: {result['clocks_sm_under_load']}  [{smi}]")
+    print(json.dumps({"phase_refine_only": result}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -777,6 +982,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--refine-only", action="store_true",
                         help="build, check and time the dense refine kernel alone")
+    parser.add_argument("--phase-refine-only", action="store_true",
+                        help="build, check and time the phase refine kernel alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -812,6 +1019,8 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED + 1)
     if args.refine_only:
         return refine_only(dev, rng, smi)
+    if args.phase_refine_only:
+        return phase_refine_only(dev, rng, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -823,6 +1032,7 @@ def main() -> int:
     if hgmma == 0:
         raise AssertionError("fused_basic_block: no HGMMA in the built library: the tensor cores are unused")
     refine_sass = log_refine_sass(_build)
+    phase_sass = log_refine_sass(_build, "refine_argmax_phase")
 
     # 3. kernel parity
     errs, scenes = phase_parity(dev, rng)
@@ -1098,14 +1308,18 @@ def main() -> int:
         shape=f"B{BATCH} K{K} H4 {q_in.shape[2]} W4 {q_in.shape[3]}"))
     avg_in, tl_in, prev_in = fused_in["refine_argmax_phase"]
     kernels.append(row(
-        "refine_argmax_phase", "fused", "exact idx and val (E=1, E=2, tie case)",
-        cuda_ms(lambda: cuda_aggregate.refine_argmax_phase_batch(avg_in, tl_in, prev_in), iters=10),
+        "refine_argmax_phase", "fused", "exact idx and val (E=1, E=2 on the stage scene; edge cases)",
+        cuda_ms(lambda: cuda_aggregate.refine_argmax_phase_batch(avg_in, tl_in, prev_in), iters=20),
         cuda_ms(lambda: cuda_aggregate.refine_argmax_phase_batch_plain(avg_in, tl_in, prev_in), iters=2),
         refine_phase_bound(avg_in, tl_in, prev_in), None,
         ms_fused_scene=cuda_ms(lambda: cuda_aggregate.refine_argmax_phase_batch(
-            *scene_in["refine_argmax_phase"]), iters=10),
+            *scene_in["refine_argmax_phase"]), iters=20),
         shape=f"B{BATCH} K{K} H4 {avg_in.shape[4]} W4 {avg_in.shape[5]} E{tl_in.shape[2]} "
-              f"P{prev_in.shape[1]}"))
+              f"P{prev_in.shape[1]}",
+        splits=cuda_aggregate.phase_refine_splits(
+            BATCH * K, avg_in.shape[4], avg_in.shape[5], tl_in.shape[2],
+            torch.cuda.get_device_properties(dev).multi_processor_count),
+        sass=phase_sass))
     per_shape = []
     for r in block_rows:
         x, w1, b1, w2, b2 = r["inputs"]

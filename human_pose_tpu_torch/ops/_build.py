@@ -42,7 +42,7 @@ SIGNATURES = {
     "refine_argmax": {"launch_refine_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
     "fused_aggregate": {"launch_fused_aggregate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "refine_argmax_phase": {"launch_refine_argmax_phase":
-                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "fused_basic_block": {
         "launch_fused_basic_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "launch_fused_basic_block_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

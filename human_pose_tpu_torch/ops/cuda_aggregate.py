@@ -14,7 +14,9 @@ Replaces ``human_pose_tpu/ops/pallas_aggregate.py``:
   argmax on the phase-layout heatmap with the quarter-resolution tags
   upsampled 4x on the fly; the distance is ``sqrt`` of the summed squares
   even for one embedding dim (the dense refine's ``|d|`` is the JAX dense
-  path's form, not this kernel's), and every person slot is computed.
+  path's form, not this kernel's), and every person slot is computed. The
+  kernel splits each map's rows over several blocks
+  (``phase_refine_splits``) and merges their partial results exactly.
 
 The wrappers launch ``csrc/fused_aggregate.cu`` and
 ``csrc/refine_argmax_phase.cu`` on CUDA tensors and run the plain versions
@@ -28,10 +30,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from .cuda_decode import MAX_E, refine_splits, run_person_chunks
 from .phase import UP4_W, dense_to_phase, phase_to_dense
 
-MAX_P = 32  # persons held in registers per thread
-MAX_E = 4  # embedding dims with a compiled kernel instance
 MAX_SMEM = 200 * 1024  # bytes of shared memory a kernel block may ask for
 
 
@@ -148,7 +149,29 @@ def refine_argmax_phase_batch_plain(avg_phase: torch.Tensor, tags_lo: torch.Tens
     return idx.to(torch.int32), val
 
 
-def refine_argmax_phase_batch(avg_phase: torch.Tensor, tags_lo: torch.Tensor, prev: torch.Tensor):
+def phase_refine_splits(maps: int, h4: int, w4: int, e: int, sm_count: int) -> int:
+    """Blocks that share the ``4*H4`` full-resolution rows of one of the
+    ``maps = B * K`` maps: ``cuda_decode.refine_splits`` for a map of
+    ``16*H4*W4`` pixels, at most one block a row, and more blocks while a
+    block's staged tag rows would not fit in ``MAX_SMEM``."""
+    h = 4 * h4
+    splits = min(refine_splits(maps, 16 * h4 * w4, sm_count), h)
+    while staged_bytes(h4, w4, e, splits) > MAX_SMEM and splits < h:
+        splits += 1
+    return splits
+
+
+def staged_bytes(h4: int, w4: int, e: int, splits: int) -> int:
+    """Shared memory of the quarter-resolution tag rows (halo included) that
+    a block of the kernel stages when ``splits`` blocks share a map. The
+    launch is given this many bytes and refuses them if a block's rows
+    (``staged_span`` in the kernel) would not fit."""
+    rows_per = -(-4 * h4 // splits)
+    return 4 * e * w4 * min(h4, rows_per // 4 + 4)
+
+
+def refine_argmax_phase_batch(avg_phase: torch.Tensor, tags_lo: torch.Tensor, prev: torch.Tensor,
+                              splits: int | None = None):
     """Refine argmax on phase-layout heatmaps and quarter-resolution tags.
 
     ``avg_phase [B, K, 4, 4, H4, W4]`` float32 (``fused_aggregate``'s
@@ -158,9 +181,11 @@ def refine_argmax_phase_batch(avg_phase: torch.Tensor, tags_lo: torch.Tensor, pr
     ``hm - round(||tag - prev||)``, and ``val [B, K, P]`` float32, the
     heatmap there.
 
-    CUDA tensors launch the kernel (counted in
-    ``refine_argmax_phase_batch.launches``); CPU tensors run the plain
-    version."""
+    CUDA tensors launch the kernel, once per ``cuda_decode.MAX_P`` persons
+    (each launch counted in ``refine_argmax_phase_batch.launches``); CPU tensors run the
+    plain version. ``splits`` sets the blocks that share a map's rows
+    (default ``phase_refine_splits``; tests and timing sweeps set it); the
+    result does not depend on it."""
     b, k, _, _, h4, w4 = avg_phase.shape
     e = tags_lo.shape[2]
     p = prev.shape[1]
@@ -173,19 +198,34 @@ def refine_argmax_phase_batch(avg_phase: torch.Tensor, tags_lo: torch.Tensor, pr
     if avg_phase.device.type != "cuda":
         raise ValueError(f"unsupported device {avg_phase.device}")
     _float32_on(avg_phase.device, avg_phase=avg_phase, tags_lo=tags_lo, prev=prev)
-    if not (1 <= p <= MAX_P and 1 <= e <= MAX_E and e * h4 * w4 * 4 <= MAX_SMEM):
-        raise ValueError(f"unsupported sizes P={p} E={e} H4={h4} W4={w4} (P<={MAX_P}, "
-                         f"E<={MAX_E}, E*H4*W4*4<={MAX_SMEM} bytes)")
+    if not (p >= 1 and 1 <= e <= MAX_E):
+        raise ValueError(f"unsupported sizes P={p} E={e} (P>=1, E<={MAX_E})")
+    if splits is None:
+        sm_count = torch.cuda.get_device_properties(avg_phase.device).multi_processor_count
+        splits = phase_refine_splits(b * k, h4, w4, e, sm_count)
+    if not 1 <= splits <= 65535 or staged_bytes(h4, w4, e, splits) > MAX_SMEM:
+        raise ValueError(f"splits={splits} outside 1..65535 or its staged tag rows "
+                         f"({staged_bytes(h4, w4, e, splits)} bytes) over {MAX_SMEM}")
+    return run_person_chunks(lambda pc, _: _launch_phase(avg_phase, tags_lo, pc, splits), prev)
+
+
+def _launch_phase(avg_phase, tags_lo, prev, splits):
+    """One kernel launch for at most ``cuda_decode.MAX_P`` persons."""
     from ._build import load_kernel
 
+    b, k, _, _, h4, w4 = avg_phase.shape
+    e, p = tags_lo.shape[2], prev.shape[1]
     lib = load_kernel("refine_argmax_phase")
     idx = torch.empty((b, k, p), dtype=torch.int32, device=avg_phase.device)
     val = torch.empty((b, k, p), dtype=torch.float32, device=avg_phase.device)
+    # the blocks' partial (maximum's key, first group) pairs, merged by the second kernel
+    scratch = torch.empty((2, b * k, splits, p), dtype=torch.int32, device=avg_phase.device)
     stream = torch.cuda.current_stream(avg_phase.device).cuda_stream
     err = lib.launch_refine_argmax_phase(
         ctypes.c_void_p(avg_phase.data_ptr()), ctypes.c_void_p(tags_lo.data_ptr()),
         ctypes.c_void_p(prev.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
-        ctypes.c_void_p(val.data_ptr()), b, k, h4, w4, e, p, ctypes.c_void_p(stream),
+        ctypes.c_void_p(val.data_ptr()), ctypes.c_void_p(scratch.data_ptr()), b, k, h4, w4, e, p,
+        splits, staged_bytes(h4, w4, e, splits), ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"refine_argmax_phase kernel launch failed: cudaError {err}")

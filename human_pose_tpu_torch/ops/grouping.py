@@ -9,8 +9,10 @@
   the card, plain version on the CPU)
 * ``adjust``    — quarter-pixel offset toward the higher neighbour + 0.5
 * ``refine_batch`` — recovers missing joints by maximizing
-  ``heatmap - round(tag_dist)`` (``cuda_decode.refine_argmax_batch``)
-* ``parse_batch`` — the pipeline, with the single-best-person fallback
+  ``heatmap - round(tag_dist)`` (``cuda_decode.refine_argmax_batch``);
+  ``refine`` for one image
+* ``parse_batch`` — the pipeline, with the single-best-person fallback;
+  ``parse`` for one image
 * ``adjust_phase`` / ``refine_batch_phase`` — ``adjust`` and ``refine_batch``
   for the fused decode front end: heatmaps in the 4x4 phase layout, tags at
   quarter resolution (``cuda_aggregate.refine_argmax_phase_batch``)
@@ -215,6 +217,12 @@ def refine_batch(kpts_hms: torch.Tensor, tags_hms: torch.Tensor, grouped: torch.
     return _write_refined(grouped, idx, lambda ys, xs: _gather_hw(kpts_hms, ys, xs), h, w)
 
 
+def refine(kpts_hms: torch.Tensor, tags_hms: torch.Tensor, grouped: torch.Tensor) -> torch.Tensor:
+    """One image: ``kpts_hms [K, H, W]``, ``tags_hms [K, E, H, W]``,
+    ``grouped [P, K, 3+E]``; see ``refine_batch``."""
+    return refine_batch(kpts_hms[None], tags_hms[None], grouped[None])[0]
+
+
 def group_from_candidates(tags_k, coords_k, scores_k, *, det_thr: float, tag_thr: float):
     """AE grouping + fallback person from per-joint top-k candidates.
 
@@ -260,6 +268,18 @@ def parse_batch(kpts_hms: torch.Tensor, tags_hms: torch.Tensor, max_num_people: 
     if do_refine:
         grouped = refine_batch(kpts_hms, tags_hms, grouped)
     return grouped, person_scores, valid
+
+
+def parse(kpts_hms: torch.Tensor, tags_hms: torch.Tensor, max_num_people: int = 30,
+          det_thr: float = 0.1, tag_thr: float = 1.0, do_adjust: bool = True,
+          do_refine: bool = True):
+    """One image: ``kpts_hms [K, H, W]``, ``tags_hms [K, E, H, W]`` ->
+    ``joints [P, K, 3+E]``, ``person_scores [P]``, ``valid [P]``; see
+    ``parse_batch``."""
+    joints, scores, valid = parse_batch(
+        kpts_hms[None], tags_hms[None], max_num_people=max_num_people, det_thr=det_thr,
+        tag_thr=tag_thr, do_adjust=do_adjust, do_refine=do_refine)
+    return joints[0], scores[0], valid[0]
 
 
 def adjust_phase(grouped: torch.Tensor, avg_phase: torch.Tensor) -> torch.Tensor:

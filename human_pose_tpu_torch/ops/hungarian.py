@@ -69,3 +69,10 @@ def hungarian(cost: torch.Tensor, num_valid_rows: int | None = None) -> torch.Te
         if p[j] > 0:
             col_of_row[p[j] - 1] = j - 1
     return torch.tensor(col_of_row, dtype=torch.int64, device=dev)
+
+
+def hungarian_batch(costs: torch.Tensor, num_valid_rows=None) -> torch.Tensor:
+    """``hungarian`` over a batch: ``costs [N, n, n]``, ``num_valid_rows``
+    None or ``[N]`` -> ``[N, n]`` int64."""
+    rows = [None] * costs.shape[0] if num_valid_rows is None else [int(r) for r in num_valid_rows]
+    return torch.stack([hungarian(c, r) for c, r in zip(costs, rows)])

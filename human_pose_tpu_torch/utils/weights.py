@@ -1,4 +1,4 @@
-"""flax variable trees -> reference-layout torch state dicts.
+"""flax variable trees <-> reference-layout torch state dicts.
 
 The JAX package stores weights as flax trees (``{"params": ..., "batch_stats":
 ...}``, NHWC/HWIO); the port's modules are named after the reference torch
@@ -14,6 +14,9 @@ Layout conventions converted:
   torch (I, O, kH, kW) with the spatial taps flipped, which makes
   ``ConvTranspose2d(k4, s2, p1)`` equal flax's 'SAME' transposed conv
 * BatchNorm: scale/bias -> weight/bias; mean/var -> running_mean/running_var
+
+``variables_from_torch`` goes the other way, so that weights the port holds
+load back into the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 __all__ = [
     "strip_torch_prefixes",
     "torch_key_for",
+    "variables_from_torch",
     "variables_to_torch",
     "load_flax_npz",
 ]
@@ -121,16 +125,24 @@ def _to_torch_leaf(kind: str, leaf: str, value) -> np.ndarray:
     return value
 
 
+def _from_torch_leaf(kind: str, leaf: str, value) -> np.ndarray:
+    value = np.asarray(value)
+    if leaf == "kernel":
+        if kind == "conv":
+            return value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        if kind == "deconv":
+            return value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    return value
+
+
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STATS_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
-def _walk(tree: dict, visit: Callable, path: tuple = ()) -> None:
-    for name, value in tree.items():
-        if isinstance(value, dict):
-            _walk(value, visit, path + (name,))
-        else:
-            visit(path, name, value)
+def _walk(tree: dict, visit: Callable, path: tuple = ()) -> dict:
+    """The tree with every leaf replaced by ``visit(path, name, leaf)``."""
+    return {name: _walk(value, visit, path + (name,)) if isinstance(value, dict)
+            else visit(path, name, value) for name, value in tree.items()}
 
 
 def variables_to_torch(variables: dict) -> dict[str, np.ndarray]:
@@ -148,6 +160,38 @@ def variables_to_torch(variables: dict) -> dict[str, np.ndarray]:
     _walk(variables["params"], visitor(_PARAM_LEAF))
     if "batch_stats" in variables:
         _walk(variables["batch_stats"], visitor(_STATS_LEAF))
+    return out
+
+
+def variables_from_torch(state_dict: Mapping[str, Any], variables: dict) -> dict:
+    """Fill a flax-layout ``{"params", "batch_stats"}`` template (any tree
+    whose leaves have ``shape`` and ``dtype``) with a reference-layout torch
+    state dict's weights; the inverse of ``variables_to_torch``. Prefixes
+    are stripped; every template leaf must find its key with the template's
+    shape, and every key but ``num_batches_tracked`` must be used."""
+    sd = strip_torch_prefixes(state_dict)
+    used = set()
+
+    def visitor(leaf_map):
+        def visit(path, leaf, template):
+            prefix, kind = torch_key_for(path)
+            key = f"{prefix}.{leaf_map[leaf]}"
+            if key not in sd:
+                raise KeyError(f"torch state dict misses {key} (for {path})")
+            value = _from_torch_leaf(kind, leaf, sd[key])
+            if tuple(value.shape) != tuple(template.shape):
+                raise ValueError(f"shape mismatch at {key}: torch {tuple(value.shape)} vs "
+                                 f"flax {tuple(template.shape)}")
+            used.add(key)
+            return np.ascontiguousarray(value.astype(np.dtype(template.dtype)))
+        return visit
+
+    out = {"params": _walk(variables["params"], visitor(_PARAM_LEAF))}
+    if "batch_stats" in variables:
+        out["batch_stats"] = _walk(variables["batch_stats"], visitor(_STATS_LEAF))
+    left = sorted(k for k in sd if k not in used and not k.endswith("num_batches_tracked"))
+    if left:
+        raise KeyError(f"unused torch keys: {left[:8]}")
     return out
 
 

@@ -26,6 +26,7 @@ from human_pose_tpu_torch.ops import (
     match_by_tag_per_image, refine_argmax_batch, refine_argmax_batch_plain,
     refine_argmax_phase_batch, refine_argmax_phase_batch_plain,
 )
+from human_pose_tpu_torch.ops import cuda_aggregate
 
 pytestmark = pytest.mark.cuda
 
@@ -260,25 +261,132 @@ def test_fused_aggregate_kernel_equals_plain(dev, b, k, h4, w4):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("e", [1, 2, 3])
-def test_refine_phase_kernel_equals_plain(dev, e):
-    rng = np.random.RandomState(e)
-    b, k, h4, w4, p = 2, 3, 24, 40, 30
-    avg = torch.from_numpy(rng.rand(b, k, 4, 4, h4, w4).astype(np.float32)).to(dev)
-    tags = torch.from_numpy(rng.randn(b, k, e, h4, w4).astype(np.float32) * 2).to(dev)
-    prev = torch.from_numpy(rng.randn(b, p, e).astype(np.float32) * 2).to(dev)
+def _phase_inputs(seed, b, k, h4, w4, e, p, scale=2.0):
+    rng = np.random.RandomState(seed)
+    avg = rng.rand(b, k, 4, 4, h4, w4).astype(np.float32)
+    tags = (rng.randn(b, k, e, h4, w4) * scale).astype(np.float32)
+    prev = (rng.randn(b, p, e) * scale).astype(np.float32)
+    return torch.from_numpy(avg), torch.from_numpy(tags), torch.from_numpy(prev)
+
+
+def _phase_on_card(dev, avg, tags, prev, splits=None, launches=1):
+    """The kernel on the card vs the plain version (on the card, same
+    inputs): idx and val exact; ``launches`` counted launches a call."""
+    avg, tags, prev = avg.to(dev), tags.to(dev), prev.to(dev)
     want = refine_argmax_phase_batch_plain(avg, tags, prev)
-    got = refine_argmax_phase_batch(avg, tags, prev)
+    before = refine_argmax_phase_batch.launches
+    got = refine_argmax_phase_batch(avg, tags, prev, splits=splits)
     torch.cuda.synchronize()
+    assert refine_argmax_phase_batch.launches == before + launches
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got[0].cpu(), got[1].cpu()
+
+
+@pytest.mark.parametrize("splits", [None, 1, 5])
+@pytest.mark.parametrize("e", [1, 2, 3, 4])
+def test_refine_phase_kernel_equals_plain(dev, e, splits):
+    _phase_on_card(dev, *_phase_inputs(e, 2, 3, 24, 40, e, 30), splits=splits)
+
+
+@pytest.mark.parametrize("p", [1, 2, 29, 30, 31, 32, 40, 64])
+@pytest.mark.parametrize("e", [1, 2])
+def test_refine_phase_kernel_person_counts(dev, e, p):
+    """Every compiled person count's neighbourhood; 40 and 64 persons run as
+    two launches of at most 32 (the wrapper's person chunks)."""
+    _phase_on_card(dev, *_phase_inputs(p + e, 2, 2, 16, 24, e, p), launches=-(-p // 32))
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3, 7])
+@pytest.mark.parametrize("h4,w4", [(13, 37), (1, 3), (5, 1), (9, 300)])
+def test_refine_phase_kernel_ragged(dev, h4, w4, splits):
+    """Odd widths and heights, one-row and one-column maps, rows wider than
+    a block's 256 threads, splits that leave the last block short or empty."""
+    _phase_on_card(dev, *_phase_inputs(h4 * w4, 2, 2, h4, w4, 1, 7), splits=splits)
 
 
 def test_refine_phase_kernel_tie_first(dev):
     avg = torch.ones((2, 3, 4, 4, 16, 16), device=dev)
     tags = torch.zeros((2, 3, 1, 16, 16), device=dev)
     prev = torch.zeros((2, 8, 1), device=dev)
-    idx, val = refine_argmax_phase_batch(avg, tags, prev)
-    assert int(idx.abs().max()) == 0 and bool((val == 1).all())
+    for splits in (None, 1, 4):
+        idx, val = refine_argmax_phase_batch(avg, tags, prev, splits=splits)
+        assert int(idx.abs().max()) == 0 and bool((val == 1).all())
+
+
+# full-resolution (y, x) pairs of two equal maxima: two pixels of one
+# 4-pixel group, neighbouring groups, two rows of one quarter row, two
+# splits (of 4 over 64 rows), the map's two ends
+PHASE_TIE_PAIRS = [((5, 1), (5, 2)), ((5, 3), (5, 4)), ((0, 9), (1, 0)), ((15, 40), (16, 3)),
+                   ((2, 6), (63, 63))]
+
+
+@pytest.mark.parametrize("first,second", PHASE_TIE_PAIRS)
+def test_refine_phase_kernel_tie_lower_index_wins(dev, first, second):
+    avg, tags, prev = _phase_inputs(first[1], 1, 2, 16, 16, 1, 3)
+    tags.zero_(), prev.zero_()  # the difference is the heatmap itself
+    for y, x in (first, second):
+        avg[:, :, y % 4, x % 4, y // 4, x // 4] = 2.0
+    for splits in (1, 4):
+        idx, val = _phase_on_card(dev, avg, tags, prev, splits=splits)
+        assert bool((idx == first[0] * 64 + first[1]).all()) and bool((val == 2.0).all())
+
+
+def test_refine_phase_kernel_big_tags(dev):
+    """Groups whose upsampled tags reach 2**20 take the rintf instance; at
+    E=1 a distance of 2**64 or more is infinite in JAX's sqrt(d*d) form
+    (difference -inf), where |d| would be finite; person tags past 2**20
+    send a whole block there."""
+    avg, tags, prev = _phase_inputs(3, 2, 3, 16, 24, 1, 30)
+    tags[0, 0, 0, 3:6, 4:9] = 3e6  # some groups around (3..5, 4..8) past 2**20
+    tags[0, 1, 0, :, :] = 2e19  # every |d| >= 2**64: all -inf, the first pixel wins
+    tags[1, 2, 0, ::3, ::2] *= np.float32(1e6)
+    idx, val = _phase_on_card(dev, avg, tags, prev)
+    assert int(idx[0, 1].max()) == 0
+    _phase_on_card(dev, avg, tags, prev * 1e6, splits=3)
+    avg2, tags2, prev2 = _phase_inputs(4, 2, 2, 16, 24, 2, 12)
+    tags2[..., ::5, ::3] *= np.float32(1e7)
+    _phase_on_card(dev, avg2, tags2, prev2)
+
+
+@pytest.mark.parametrize("e,h4,w4", [(3, 128, 160), (4, 128, 128)])
+def test_refine_phase_kernel_large_planes(dev, e, h4, w4):
+    """E*H4*W4*4 past 200 KB (the parent kernel staged whole planes in
+    shared memory and refused these); one block a map is still refused."""
+    avg, tags, prev = _phase_inputs(e, 1, 2, h4, w4, e, 30)
+    assert e * h4 * w4 * 4 > 200 * 1024
+    _phase_on_card(dev, avg, tags, prev)
+    with pytest.raises(ValueError):
+        refine_argmax_phase_batch(avg.to(dev), tags.to(dev), prev.to(dev), splits=1)
+
+
+@pytest.mark.parametrize("h4,w4", [(1, 5), (5, 7), (7, 33)])
+def test_refine_phase_kernel_every_split(dev, h4, w4, monkeypatch):
+    """Every row split of a map: the shared memory the wrapper sizes
+    (``staged_bytes``) holds each block's staged tag rows as the kernel
+    counts them, and a byte count short of that is refused by the launch."""
+    avg, tags, prev = _phase_inputs(h4 + w4, 1, 2, h4, w4, 2, 5)
+    for splits in range(1, 4 * h4 + 1):
+        _phase_on_card(dev, avg, tags, prev, splits=splits)
+    sized = cuda_aggregate.staged_bytes
+    monkeypatch.setattr(cuda_aggregate, "staged_bytes", lambda *a: sized(*a) - 4)
+    with pytest.raises(RuntimeError):  # one block stages all h4 rows: 4 bytes short
+        refine_argmax_phase_batch(avg.to(dev), tags.to(dev), prev.to(dev), splits=1)
+
+
+@pytest.mark.parametrize("e", [1, 2])
+def test_refine_kernel_person_chunks(dev, e):
+    """The dense refine at P = 40 with mixed counts: two launches of at most
+    32 persons, counts shifted and clamped per chunk."""
+    hm, tags, prev = _refine_inputs(40 + e, 4, 3, 4096, e, 40)
+    counts = torch.tensor([40, 0, 33, 17], dtype=torch.int32)
+    want = refine_argmax_batch_plain(hm, tags, prev, counts)
+    before = refine_argmax_batch.launches
+    got = refine_argmax_batch(hm.to(dev), tags.to(dev), prev.to(dev), counts.to(dev))
+    torch.cuda.synchronize()
+    assert refine_argmax_batch.launches == before + 2
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(refine_argmax_batch(hm.to(dev), tags.to(dev), prev.to(dev)).cpu(),
+                       refine_argmax_batch_plain(hm, tags, prev))
 
 
 @pytest.mark.parametrize("e", [1, 2])

@@ -62,6 +62,44 @@ def test_variables_to_torch_matches_jax(shallow):
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
+def _assert_trees_equal(got: dict, want: dict, path=()):
+    assert got.keys() == want.keys(), path
+    for key, value in want.items():
+        if isinstance(value, dict):
+            _assert_trees_equal(got[key], value, path + (key,))
+        else:
+            assert got[key].dtype == value.dtype and got[key].shape == value.shape, path + (key,)
+            np.testing.assert_array_equal(got[key], value, err_msg="/".join(path + (key,)))
+
+
+def test_variables_from_torch_round_trip(shallow):
+    """flax tree -> torch state dict -> flax tree gives back every leaf,
+    deconv taps and BN statistics included; through the port's modules too
+    (load_state_dict, then state_dict with its num_batches_tracked)."""
+    _, variables = shallow
+    sd = weights.variables_to_torch(variables)
+    _assert_trees_equal(weights.variables_from_torch(sd, variables), variables)
+    net = HigherHRNet(num_kpts=17, C=8, device="cpu", **SHALLOW)
+    net.load_state_dict(_to_tensors(sd), strict=True)
+    back = weights.variables_from_torch({f"module.{k}": v for k, v in net.state_dict().items()},
+                                        variables)
+    _assert_trees_equal(back, variables)
+
+
+def test_variables_from_torch_matches_jax(shallow):
+    """The same state dict (the port's model's, randomised) into the port's
+    and the JAX package's ``variables_from_torch``: equal trees."""
+    _, variables = shallow
+    rs = np.random.RandomState(5)
+    sd = {k: (0.5 + rs.rand(*v.shape) if k.endswith("running_var") else rs.randn(*v.shape))
+          .astype(np.float32) for k, v in weights.variables_to_torch(variables).items()}
+    want = torch_interop.variables_from_torch(sd, variables)
+    got = weights.variables_from_torch(sd, variables)
+    _assert_trees_equal(got, {col: jax.tree_util.tree_map(np.asarray, tree) for col, tree in want.items()})
+    with pytest.raises(KeyError):
+        weights.variables_from_torch({**sd, "extra.weight": np.zeros(1, np.float32)}, variables)
+
+
 def test_state_dict_loads_strict(shallow):
     _, variables = shallow
     net = HigherHRNet(num_kpts=17, C=8, device="cpu", **SHALLOW)
