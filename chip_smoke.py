@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --refine-only        # the dense refine alone, see the end
     python3 chip_smoke.py --phase-refine-only  # the phase refine alone, see the end
+    python3 chip_smoke.py --aggregate-only     # the fused aggregate alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -19,7 +20,8 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
 3. kernel parity at main-path shapes, CUDA kernel vs its plain version, both
    on the card: the dense refine (E=1, E=2, ties within and across its row
    splits, a ragged row length with mixed counts) and the grouping; the
-   fused aggregate, the
+   fused aggregate (the stage scene; tiny, ragged and wide maps, every strip
+   height of a small map, maxima across a strip and a warp boundary), the
    phase refine (E=1, E=2 on the stage scene; E=1..4, P=1..64 through the
    person chunks, ragged maps, ties within a group and across row splits,
    tags past 2**20 and distances past 2**64, planes past 200 KB, a constant
@@ -59,6 +61,14 @@ and of the stage scene, times the kernel on both and over a sweep of row
 splits, times the fused and the dense decode on both inputs, reads FRND
 counts from the SASS and the SM clock under load, and prints one JSON object
 last (no ``ok`` line).
+
+``--aggregate-only`` is the same loop for the fused aggregate: it builds the
+decode's kernels, runs the aggregate's parity cases, takes its inputs from the
+fused decode of the forward's outputs and of the stage scene, times the
+kernel on both and over a sweep of strip heights, times the write floor
+(``fill_`` of two tensors of the outputs' size) and the fused and the dense
+decode on both inputs, reads the SM clock under load, and prints one JSON
+object last (no ``ok`` line).
 """
 
 from __future__ import annotations
@@ -385,6 +395,37 @@ def profile_breakdown(fn, top: int = 12):
     return busy_ms, groups
 
 
+def clocks_under_load(fn, calls: int) -> str:
+    """nvidia-smi's SM clock, its maximum and the power draw, read while
+    ``calls`` queued calls of ``fn`` (about a second of work) run."""
+    import torch
+
+    for _ in range(calls):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    torch.cuda.synchronize()
+    return out
+
+
+def decode_times(inputs, fused, dense) -> dict:
+    """Fused vs dense decode on each ``{what: args}`` of ``inputs``: ms
+    between CUDA events (the host's syncs and launches included), in turns
+    (fused, dense, dense, fused), and the device's busy ms and its groups
+    from the profiler."""
+    out = {}
+    for what, a in inputs.items():
+        times = {"fused": [], "dense": []}
+        for name_ in ("fused", "dense", "dense", "fused"):
+            fn = fused if name_ == "fused" else dense
+            times[name_].append(cuda_ms(lambda: fn(*a), iters=5, reps=5))
+        fused_busy, fused_groups = profile_breakdown(lambda: fused(*a))
+        out[what] = {**times, "fused_busy": fused_busy, "fused_busy_groups": fused_groups,
+                     "dense_busy": profile_breakdown(lambda: dense(*a))[0]}
+    return out
+
+
 # kernel name -> (module of the decode that calls its entry point, attribute)
 ENTRY_POINTS = {
     "match_by_tag": ("grouping", "match_by_tag_batched"),
@@ -682,9 +723,88 @@ def fused_parity(dev, rng, q, h2, tags_lo):
         log(f"phase refine E={e}: {gi.numel()} (b,k,p) slots, {bad} idx/val mismatches")
         if bad:
             raise AssertionError(f"phase refine kernel disagrees with plain on {bad} values (E={e})")
+    aggregate_edge_parity(dev)
     phase_edge_parity(dev)
-    log("parity: fused aggregate bit-equal; phase refine exact (E=1,2, edge cases)")
+    log("parity: fused aggregate bit-equal (edge cases too); phase refine exact (E=1,2, edge cases)")
     return errs
+
+
+# (B, K, H4, W4) of the aggregate's edge cases: tiny and ragged maps, a row
+# of several warps, and one wider than a block (column tiles)
+AGG_EDGE_SHAPES = ((1, 1, 1, 1), (1, 2, 1, 3), (1, 1, 5, 1), (3, 5, 13, 20), (1, 2, 37, 9),
+                   (2, 3, 16, 128), (1, 1, 8, 1024))
+
+
+def aggregate_inputs(rng, b, k, h4, w4, dev):
+    """Signed random stages with a 5.0 plateau in the first map, above every
+    other value (the NMS keeps every equal maximum)."""
+    import torch
+
+    q = rng.standard_normal((b, k, h4, w4), dtype=np.float32)
+    h2 = rng.standard_normal((b, k, 2 * h4, 2 * w4), dtype=np.float32)
+    q[0, 0, :max(1, h4 // 2), :max(1, w4 // 2)] = 5.0
+    h2[0, 0, :h4, :w4] = 5.0
+    return torch.from_numpy(q).to(dev), torch.from_numpy(h2).to(dev)
+
+
+def boundary_maps(rng, dev):
+    """Three 16x64 maps (64 quarter columns: two warps) whose maxima sit on
+    full-resolution row 16 (a strip boundary at rows = 1, 2, 4) and column
+    128 (the first column of the second warp): a 5.0 plateau on rows 15-16,
+    columns 127-128; two equal peaks diagonal across that corner; one peak
+    exactly at (16, 128)."""
+    import torch
+
+    q = rng.random((1, 3, 16, 64), dtype=np.float32) * np.float32(0.5)
+    h2 = rng.random((1, 3, 32, 128), dtype=np.float32) * np.float32(0.5)
+    q[0, 0, 3:5, 31:33] = 5.0
+    h2[0, 0, 6:10, 62:66] = 5.0
+    q[0, 1:] = 0.0
+    h2[0, 1:] = 0.0
+    h2[0, 1, 7, 63] = h2[0, 1, 8, 64] = 8.0
+    h2[0, 2, 7, 63] = h2[0, 2, 7, 64] = h2[0, 2, 8, 63] = 4.0
+    h2[0, 2, 8, 64] = 8.0
+    return torch.from_numpy(q).to(dev), torch.from_numpy(h2).to(dev)
+
+
+def aggregate_edge_parity(dev) -> None:
+    """The fused aggregate's edge cases on the card, avg, sup and cmax each
+    equal (``torch.equal``) to the plain version, one launch a call: the
+    shapes of ``AGG_EDGE_SHAPES``; every strip height of an 11x45 map; maxima
+    across a strip and a warp boundary (``boundary_maps``)."""
+    import torch
+
+    from human_pose_tpu_torch.ops import cuda_aggregate as ca
+    from human_pose_tpu_torch.ops.phase import phase_to_dense
+
+    rng = np.random.default_rng(SEED + 4)  # its own stream: the other phases' data stay as they were
+
+    def check(what, q, h2, rows=None):
+        before = ca.fused_aggregate.launches
+        got = ca.fused_aggregate(q, h2, rows)
+        want = ca.fused_aggregate_plain(q, h2)
+        torch.cuda.synchronize()
+        if ca.fused_aggregate.launches != before + 1:
+            raise AssertionError(f"fused aggregate {what}: {ca.fused_aggregate.launches - before} launches")
+        for name_, g, w in zip(("avg", "sup", "cmax"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"fused aggregate {what} (rows {rows}): {name_} differs from plain, "
+                                     f"max |diff| {float((g - w).abs().max())}")
+        return got
+
+    for shape in AGG_EDGE_SHAPES:
+        check(f"{shape}", *aggregate_inputs(rng, *shape, dev))
+    q, h2 = aggregate_inputs(rng, 1, 2, 11, 45, dev)
+    for rows in range(1, 12):
+        check("11x45", q, h2, rows)
+    q, h2 = boundary_maps(rng, dev)
+    for rows in (None, 1, 2, 4):
+        sup = phase_to_dense(check("boundary maxima", q, h2, rows)[1])[0]
+        tops = [sorted({(int(y), int(x)) for y, x in (m == m.max()).nonzero().tolist()}) for m in sup]
+        if tops != [[(15, 127), (15, 128), (16, 127), (16, 128)], [(15, 127), (16, 128)], [(16, 128)]]:
+            raise AssertionError(f"fused aggregate boundary maxima (rows {rows}): kept {tops}")
+    log(f"parity: fused aggregate edge cases equal to plain ({len(AGG_EDGE_SHAPES)} shapes, "
+        "rows 1..11 of an 11x45 map, maxima across a strip and a warp boundary)")
 
 
 def phase_edge_parity(dev) -> None:
@@ -867,12 +987,7 @@ def refine_only(dev, rng, smi: str) -> int:
     for splits in (1, 2, 4, 8, 12, 16, 24, 32, 64):
         result["ms_main_by_splits"][splits] = cuda_ms(lambda: refine(*main_in, splits=splits), iters=20)
     result["ms_main_again"] = cuda_ms(lambda: refine(*main_in), iters=20)
-    for _ in range(1500):  # about a second of queued launches: the SM clock under this load
-        refine(*main_in)
-    result["clocks_sm_under_load"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    torch.cuda.synchronize()
+    result["clocks_sm_under_load"] = clocks_under_load(lambda: refine(*main_in), 1500)
     log(f"refine: main {result['ms_main']:.4f} ms (again {result['ms_main_again']:.4f}), dense scene "
         f"{result['ms_dense_scene']:.4f} ms, bound {result['bound_ms']:.4f} ms; by splits "
         f"{ {k: round(v, 4) for k, v in result['ms_main_by_splits'].items()} }; SM clock, max, "
@@ -948,28 +1063,85 @@ def phase_refine_only(dev, rng, smi: str) -> int:
     result["ms_fused_again"] = cuda_ms(lambda: refine(*main_in), iters=20)
     result["hot_loop_e1"] = loop
     result["frnd_in_rintf_instances"] = rintf_frnd
-    # fused vs dense decode: CUDA events (the host's syncs and launches
-    # included), in turns, and the device's busy time from the profiler
-    result["decode_ms"] = {}
-    for what, a in inputs.items():
-        times = {"fused": [], "dense": []}
-        for name_ in ("fused", "dense", "dense", "fused"):
-            fn = fused if name_ == "fused" else dense
-            times[name_].append(cuda_ms(lambda: fn(*a), iters=5, reps=5))
-        result["decode_ms"][what] = {
-            **times, "fused_busy": profile_breakdown(lambda: fused(*a))[0],
-            "dense_busy": profile_breakdown(lambda: dense(*a))[0]}
-    for _ in range(1000):  # about a second of queued launches: the SM clock under this load
-        refine(*main_in)
-    result["clocks_sm_under_load"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    torch.cuda.synchronize()
+    result["decode_ms"] = decode_times(inputs, fused, dense)
+    result["clocks_sm_under_load"] = clocks_under_load(lambda: refine(*main_in), 1000)
     log(f"phase refine: fused {result['ms_fused']:.4f} ms (again {result['ms_fused_again']:.4f}), stage "
         f"scene {result['ms_fused_scene']:.4f} ms, bound {result['bound_ms']:.4f} ms; by splits "
         f"{ {k: round(v, 4) for k, v in result['ms_fused_by_splits'].items()} }; decode fused vs dense "
         f"{result['decode_ms']}; SM clock, max, power under load: {result['clocks_sm_under_load']}  [{smi}]")
     print(json.dumps({"phase_refine_only": result}), flush=True)
+    return 0
+
+
+# strip heights (quarter rows a block) that --aggregate-only times; past H4 skipped
+AGG_ROWS_SWEEP = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def aggregate_only(dev, rng, smi: str) -> int:
+    """The short loop for the fused aggregate: build, parity, then its time
+    on the fused decode's inputs (forward outputs, stage scene) and over a
+    sweep of strip heights, the write floor (``fill_`` of two tensors of the
+    outputs' size), and fused vs dense decode on both inputs. Prints one JSON
+    object last."""
+    import torch
+
+    from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
+    from human_pose_tpu_torch.ops import _build, cuda_aggregate, decode_batch, decode_batch_fused
+
+    secs = _build.build_kernels(("fused_aggregate", "refine_argmax_phase", "match_by_tag", "refine_argmax"))
+    log(f"build: per kernel {secs}")
+    log_build(_build)
+    q_s, h2_s, t_s = [torch.from_numpy(a).to(dev) for a in make_stage_scene(rng, BATCH, SIZE // 4, SIZE // 4)]
+    model = HigherHRNet(num_kpts=K, C=32, device=dev)
+    init_flax_default_(model, torch.Generator().manual_seed(SEED))
+    model.eval()
+    images = torch.from_numpy(rng.standard_normal((BATCH, 3, SIZE, SIZE), dtype=np.float32)).to(dev)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        hms, tags = model(images)
+    inputs = {"forward": (hms, [tags]), "stage_scene": ([q_s, h2_s], [t_s[:, :, 0]])}
+
+    def fused(stages, tags_list):
+        return decode_batch_fused(stages, tags_list, (SIZE, SIZE), max_num_people=M,
+                                  det_thr=DET_THR, tag_thr=TAG_THR)
+
+    def dense(stages, tags_list):
+        return decode_batch(stages, tags_list, (SIZE, SIZE), max_num_people=M,
+                            det_thr=DET_THR, tag_thr=TAG_THR)
+
+    agg = cuda_aggregate.fused_aggregate
+    kin = {what: record_kernel_inputs(lambda a=a: fused(*a))["fused_aggregate"] for what, a in inputs.items()}
+    aggregate_edge_parity(dev)
+    for what, args in kin.items():
+        got, want = agg(*args), cuda_aggregate.fused_aggregate_plain(*args)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"fused aggregate differs from plain on the {what} inputs")
+    log(f"parity: fused aggregate equal to plain on the fused decode's inputs ({', '.join(kin)})")
+    q, h2 = kin["forward"]
+    b, k, h4, w4 = q.shape
+    warm_up(lambda: (agg(q, h2), torch.cuda.synchronize()), 3.0)
+    avg = torch.empty((b, k, 4, 4, h4, w4), dtype=torch.float32, device=dev)
+    sup = torch.empty_like(avg)
+    result = {"card": smi, "shape": f"B{b} K{k} H4 {h4} W4 {w4}",
+              "ms_fused": cuda_ms(lambda: agg(q, h2), iters=20),
+              "ms_fused_scene": cuda_ms(lambda: agg(*kin["stage_scene"]), iters=20),
+              "bound_ms": aggregate_bound(q, h2)[0],
+              "write_floor_ms": cuda_ms(lambda: (avg.fill_(0.0), sup.fill_(0.0)), iters=20),
+              "ms_fused_by_rows": {}}
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    result["rows"], result["threads"] = cuda_aggregate.aggregate_launch(b * k, h4, w4, sm_count)
+    for rows in AGG_ROWS_SWEEP:
+        if rows <= h4:
+            result["ms_fused_by_rows"][rows] = cuda_ms(lambda: agg(q, h2, rows), iters=20)
+    result["ms_fused_again"] = cuda_ms(lambda: agg(q, h2), iters=20)
+    result["write_floor_ms_again"] = cuda_ms(lambda: (avg.fill_(0.0), sup.fill_(0.0)), iters=20)
+    result["decode_ms"] = decode_times(inputs, fused, dense)
+    result["clocks_sm_under_load"] = clocks_under_load(lambda: agg(q, h2), 1000)
+    log(f"fused aggregate: fused {result['ms_fused']:.4f} ms (again {result['ms_fused_again']:.4f}), stage "
+        f"scene {result['ms_fused_scene']:.4f} ms, bound {result['bound_ms']:.4f} ms, write floor "
+        f"{result['write_floor_ms']:.4f} ms; by rows "
+        f"{ {r: round(v, 4) for r, v in result['ms_fused_by_rows'].items()} }; decode fused vs dense "
+        f"{result['decode_ms']}; SM clock, max, power under load: {result['clocks_sm_under_load']}  [{smi}]")
+    print(json.dumps({"aggregate_only": result}), flush=True)
     return 0
 
 
@@ -984,6 +1156,8 @@ def main() -> int:
                         help="build, check and time the dense refine kernel alone")
     parser.add_argument("--phase-refine-only", action="store_true",
                         help="build, check and time the phase refine kernel alone")
+    parser.add_argument("--aggregate-only", action="store_true",
+                        help="build, check and time the fused aggregate kernel alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1021,6 +1195,8 @@ def main() -> int:
         return refine_only(dev, rng, smi)
     if args.phase_refine_only:
         return phase_refine_only(dev, rng, smi)
+    if args.aggregate_only:
+        return aggregate_only(dev, rng, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -1299,12 +1475,18 @@ def main() -> int:
         shape=f"B{BATCH} K{K} M{cand_s.shape[2]} E{cand_s.shape[3] - 3} P{persons_s}",
         valid_rows=int((cand_s[..., 2] > DET_THR).sum())))
     q_in, h2_in = fused_in["fused_aggregate"]
+    avg_out = torch.empty((BATCH, K, 4, 4, *q_in.shape[2:]), device=dev)  # the write floor's two outputs
+    sup_out = torch.empty_like(avg_out)
+    agg_rows, agg_threads = cuda_aggregate.aggregate_launch(
+        BATCH * K, q_in.shape[2], q_in.shape[3], torch.cuda.get_device_properties(dev).multi_processor_count)
     kernels.append(row(
-        "fused_aggregate", "fused", "avg and sup bit-equal, cmax equal",
+        "fused_aggregate", "fused", "avg, sup and cmax equal (edge cases too)",
         cuda_ms(lambda: cuda_aggregate.fused_aggregate(q_in, h2_in), iters=20),
         cuda_ms(lambda: cuda_aggregate.fused_aggregate_plain(q_in, h2_in), iters=3),
         aggregate_bound(q_in, h2_in), None,
         ms_fused_scene=cuda_ms(lambda: cuda_aggregate.fused_aggregate(q_s, h2_s), iters=20),
+        write_floor_ms=cuda_ms(lambda: (avg_out.fill_(0.0), sup_out.fill_(0.0)), iters=20),
+        rows=agg_rows, threads=agg_threads,
         shape=f"B{BATCH} K{K} H4 {q_in.shape[2]} W4 {q_in.shape[3]}"))
     avg_in, tl_in, prev_in = fused_in["refine_argmax_phase"]
     kernels.append(row(
@@ -1358,7 +1540,9 @@ def main() -> int:
               f"{head_row['ms_with_packing']:.4f} with packing); every W32 branch shape and dtype "
               "in per_shape",
         per_shape=per_shape, fold_max_abs_err=fold_err, w32_bf16_rel_err=bf16_rel,
-        hgmma_instructions=hgmma))
+        hgmma_instructions=hgmma,
+        float32={f"C{r['c']} {r['hw']}^2": {key: r[key] for key in ("ms", "bound_ms", "bound_by", "library_ms")}
+                 for r in per_shape if r["dtype"] == "float32"}))
     print("kernels: " + "; ".join(
         f"{r['name']} replaces={r['replaces']} {REPLACES[r['name']][1]} launches={r['launches']} "
         f"({r['path']} path; {r['launches_by_path']}) parity={r['parity']} "

@@ -86,7 +86,22 @@ def _float32_on(dev, **tensors):
             raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
 
 
-def fused_aggregate(q: torch.Tensor, h2: torch.Tensor):
+AGG_MAX_THREADS = 256  # a block's most lanes (the kernel's launch bound), one 4-pixel group each
+AGG_BLOCKS_PER_SM = 24  # strips a map is cut into: about this many blocks an SM
+
+
+def aggregate_launch(maps: int, h4: int, w4: int, sm_count: int) -> tuple[int, int]:
+    """``(rows, threads)`` of the kernel's launch for ``maps = B * K`` maps of
+    ``H4 x W4``: ``rows`` quarter rows a block (a strip, 1 .. H4), enough
+    strips for at least ``AGG_BLOCKS_PER_SM`` blocks an SM; ``threads`` lanes a
+    block, one a quarter column, whole warps, at most ``AGG_MAX_THREADS``
+    (wider rows run as column tiles inside the block). The kernel takes no
+    dynamic shared memory."""
+    rows = min(h4, max(1, maps * h4 // (sm_count * AGG_BLOCKS_PER_SM)))
+    return rows, min(AGG_MAX_THREADS, 32 * -(-w4 // 32))
+
+
+def fused_aggregate(q: torch.Tensor, h2: torch.Tensor, rows: int | None = None):
     """Aggregate, upsample, NMS and row maxima in one pass.
 
     ``q [B, K, H4, W4]`` float32 quarter-resolution heatmaps, ``h2 [B, K,
@@ -96,7 +111,9 @@ def fused_aggregate(q: torch.Tensor, h2: torch.Tensor):
     i]`` is the maximum of sup's full-resolution row ``4i + ry``).
 
     CUDA tensors launch the kernel (counted in ``fused_aggregate.launches``);
-    CPU tensors run the plain version."""
+    CPU tensors run the plain version. ``rows`` sets the quarter rows a block
+    walks down (default ``aggregate_launch``; tests and timing sweeps set
+    it); the result does not depend on it."""
     b, k, h4, w4 = q.shape
     if tuple(h2.shape) != (b, k, 2 * h4, 2 * w4):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} h2 {tuple(h2.shape)}")
@@ -105,8 +122,11 @@ def fused_aggregate(q: torch.Tensor, h2: torch.Tensor):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _float32_on(q.device, q=q, h2=h2)
-    if (6 * 2 * w4 + 16 * 4 * w4) * 4 > MAX_SMEM:  # the block's half- and full-resolution rows
-        raise ValueError(f"W4={w4} too wide for the kernel's shared memory")
+    sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
+    default_rows, threads = aggregate_launch(b * k, h4, w4, sm_count)
+    rows = default_rows if rows is None else rows
+    if not 1 <= rows <= h4:
+        raise ValueError(f"rows={rows} outside 1..H4={h4}")
     from ._build import load_kernel
 
     lib = load_kernel("fused_aggregate")
@@ -117,7 +137,7 @@ def fused_aggregate(q: torch.Tensor, h2: torch.Tensor):
     err = lib.launch_fused_aggregate(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(h2.data_ptr()),
         ctypes.c_void_p(avg.data_ptr()), ctypes.c_void_p(sup.data_ptr()),
-        ctypes.c_void_p(cmax.data_ptr()), b, k, h4, w4, ctypes.c_void_p(stream),
+        ctypes.c_void_p(cmax.data_ptr()), b, k, h4, w4, rows, threads, ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"fused_aggregate kernel launch failed: cudaError {err}")

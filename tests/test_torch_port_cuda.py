@@ -27,6 +27,7 @@ from human_pose_tpu_torch.ops import (
     refine_argmax_phase_batch, refine_argmax_phase_batch_plain,
 )
 from human_pose_tpu_torch.ops import cuda_aggregate
+from human_pose_tpu_torch.ops.phase import phase_to_dense
 
 pytestmark = pytest.mark.cuda
 
@@ -242,23 +243,75 @@ def test_decode_card_equals_cpu(dev):
     assert torch.allclose(gj.cpu()[cv], cj[cv], atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("b,k,h4,w4", [(2, 3, 16, 128), (3, 5, 13, 20), (1, 2, 1, 3)])
-def test_fused_aggregate_kernel_equals_plain(dev, b, k, h4, w4):
-    """Bit-equal maps and row maxima, on signed maps with a flat plateau (the
-    NMS keeps every equal maximum)."""
-    rng = np.random.RandomState(h4)
-    q = rng.randn(b, k, h4, w4).astype(np.float32)
-    h2 = rng.randn(b, k, 2 * h4, 2 * w4).astype(np.float32)
-    q[0, 0, : max(1, h4 // 2), : max(1, w4 // 2)] = 5.0
-    h2[0, 0, :h4, :w4] = 5.0
-    q, h2 = torch.from_numpy(q).to(dev), torch.from_numpy(h2).to(dev)
+def _aggregate_on_card(dev, q, h2, rows=None):
+    """The kernel on the card vs the plain version (on the card, same
+    inputs): avg, sup and cmax equal, one launch a call."""
+    q, h2 = q.to(dev), h2.to(dev)
     want = fused_aggregate_plain(q, h2)
     before = fused_aggregate.launches
-    got = fused_aggregate(q, h2)
+    got = fused_aggregate(q, h2, rows)
     torch.cuda.synchronize()
     assert fused_aggregate.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    return [g.cpu() for g in got]
+
+
+def _aggregate_inputs(seed, b, k, h4, w4):
+    """Signed maps with a flat 5.0 plateau, above every other value (the NMS
+    keeps every equal maximum)."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, k, h4, w4).astype(np.float32)
+    h2 = rng.randn(b, k, 2 * h4, 2 * w4).astype(np.float32)
+    q[0, 0, : max(1, h4 // 2), : max(1, w4 // 2)] = 5.0
+    h2[0, 0, :h4, :w4] = 5.0
+    return torch.from_numpy(q), torch.from_numpy(h2)
+
+
+@pytest.mark.parametrize("b,k,h4,w4", [(2, 3, 16, 128), (3, 5, 13, 20), (1, 2, 1, 3), (1, 1, 1, 1),
+                                       (1, 1, 5, 1), (1, 2, 37, 9), (1, 1, 8, 1024)])
+def test_fused_aggregate_kernel_equals_plain(dev, b, k, h4, w4):
+    """Bit-equal maps and row maxima on tiny, ragged and wide maps (W4 = 1024
+    runs as column tiles inside a block)."""
+    _aggregate_on_card(dev, *_aggregate_inputs(h4, b, k, h4, w4))
+
+
+@pytest.mark.parametrize("h4,w4", [(11, 45), (6, 70)])
+def test_fused_aggregate_kernel_every_rows(dev, h4, w4):
+    """Every strip height R = 1 .. H4 gives the same outputs."""
+    q, h2 = _aggregate_inputs(h4 + w4, 2, 2, h4, w4)
+    for rows in range(1, h4 + 1):
+        _aggregate_on_card(dev, q, h2, rows)
+    with pytest.raises(ValueError):
+        fused_aggregate(q.to(dev), h2.to(dev), h4 + 1)
+
+
+def _boundary_maps():
+    """16x64 maps (two warps of quarter columns) whose maxima sit on full row
+    16 (a strip boundary for rows 1, 2, 4) and column 128 (the second warp's
+    first column): a 5.0 plateau on rows 15-16, columns 127-128; two equal
+    peaks diagonal across that corner; one peak exactly at (16, 128)."""
+    rng = np.random.RandomState(16)
+    q = (rng.rand(1, 3, 16, 64) * 0.5).astype(np.float32)
+    h2 = (rng.rand(1, 3, 32, 128) * 0.5).astype(np.float32)
+    q[0, 0, 3:5, 31:33] = 5.0
+    h2[0, 0, 6:10, 62:66] = 5.0
+    q[0, 1:] = 0.0
+    h2[0, 1:] = 0.0
+    h2[0, 1, 7, 63] = h2[0, 1, 8, 64] = 8.0
+    h2[0, 2, 7, 63] = h2[0, 2, 7, 64] = h2[0, 2, 8, 63] = 4.0
+    h2[0, 2, 8, 64] = 8.0
+    return torch.from_numpy(q), torch.from_numpy(h2)
+
+
+@pytest.mark.parametrize("rows", [None, 1, 2, 4, 16])
+def test_fused_aggregate_kernel_boundary_maxima(dev, rows):
+    """A plateau and peaks placed across a strip boundary and a warp
+    boundary: every equal maximum is kept, as in the plain version."""
+    _, sup, _ = _aggregate_on_card(dev, *_boundary_maps(), rows)
+    tops = [sorted({(int(y), int(x)) for y, x in (m == m.max()).nonzero().tolist()})
+            for m in phase_to_dense(sup)[0]]
+    assert tops == [[(15, 127), (15, 128), (16, 127), (16, 128)], [(15, 127), (16, 128)], [(16, 128)]]
 
 
 def _phase_inputs(seed, b, k, h4, w4, e, p, scale=2.0):

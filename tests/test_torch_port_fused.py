@@ -29,7 +29,7 @@ from human_pose_tpu.ops.pallas_aggregate import (
 )
 from human_pose_tpu.ops.pallas_match import match_by_tag_pallas
 from human_pose_tpu_torch.ops import (
-    adjust_phase, cuda_match, decode_batch, decode_batch_fused, fused_aggregate, phase_gather,
+    adjust_phase, cuda_aggregate, cuda_match, decode_batch, decode_batch_fused, fused_aggregate, phase_gather,
     refine_argmax_phase_batch, refine_batch_phase, sample_tags_bilinear,
 )
 from human_pose_tpu_torch.ops.phase import dense_to_phase, phase_to_dense
@@ -74,6 +74,45 @@ def test_fused_aggregate_matches_jax(maps, jax_aggregate):
     rows = phase_to_dense(sup).amax(dim=3).reshape(B, K, H4, 4).transpose(2, 3)
     assert torch.equal(cmax, rows)
     assert torch.equal(dense_to_phase(phase_to_dense(avg)), avg)
+
+
+@pytest.mark.parametrize("b,k,h4,w4", [(1, 2, 1, 3), (2, 3, 13, 20), (1, 1, 5, 1), (1, 2, 37, 9)])
+def test_fused_aggregate_small_maps_match_jax(b, k, h4, w4):
+    """Tiny and ragged maps (the card tests' shapes) with a 5.0 plateau: the
+    port's aggregate within one ulp at 5.0 of JAX's interpret-mode kernel
+    (XLA:CPU contracts some of JAX's lerps into FMAs), the same NMS
+    survivors, and cmax exactly the row maxima of sup."""
+    rs = np.random.RandomState(100 * h4 + w4)
+    q = rs.randn(b, k, h4, w4).astype(np.float32)
+    h2 = rs.randn(b, k, 2 * h4, 2 * w4).astype(np.float32)
+    q[0, 0, : max(1, h4 // 2), : max(1, w4 // 2)] = 5.0
+    h2[0, 0, :h4, :w4] = 5.0
+    ja, js, jc = [np.asarray(a) for a in jax_fused_aggregate(jnp.asarray(q), jnp.asarray(h2), interpret=True)]
+    avg, sup, cmax = fused_aggregate(_t(q), _t(h2))
+    np.testing.assert_allclose(avg.numpy(), ja, rtol=0, atol=5e-7)
+    np.testing.assert_array_equal(sup.numpy() != 0, js != 0)  # the same NMS survivors
+    np.testing.assert_allclose(sup.numpy(), js, rtol=0, atol=5e-7)
+    np.testing.assert_allclose(cmax.numpy(), jc, rtol=0, atol=5e-7)
+    rows = phase_to_dense(sup).amax(dim=3).reshape(b, k, h4, 4).transpose(2, 3)
+    assert torch.equal(cmax, rows)
+
+
+@pytest.mark.parametrize("h4", [1, 13, 128, 256])
+@pytest.mark.parametrize("w4", [1, 3, 128, 1024])
+def test_aggregate_launch_sizing(h4, w4):
+    """The wrapper's launch sizing: a strip of 1 .. H4 quarter rows, whole
+    warps up to the block limit the launch checks (256 lanes, the kernel's
+    launch bound; the kernel takes no dynamic shared memory), one lane a
+    quarter column while the row fits a block; at the main path's shape
+    about 24 blocks an SM."""
+    for maps, sm_count in ((1, 132), (24 * 17, 132), (3, 8)):
+        rows, threads = cuda_aggregate.aggregate_launch(maps, h4, w4, sm_count)
+        assert 1 <= rows <= h4
+        assert threads % 32 == 0 and 32 <= threads <= 256
+        assert threads >= min(w4, cuda_aggregate.AGG_MAX_THREADS)
+        assert threads - 32 < w4 or threads == 32
+    rows, _ = cuda_aggregate.aggregate_launch(24 * 17, 128, 128, 132)
+    assert 24 * 17 * -(-128 // rows) >= 132 * cuda_aggregate.AGG_BLOCKS_PER_SM
 
 
 @pytest.mark.parametrize("e", [1, 2])
