@@ -4,6 +4,7 @@
     python3 chip_smoke.py --refine-only        # the dense refine alone, see the end
     python3 chip_smoke.py --phase-refine-only  # the phase refine alone, see the end
     python3 chip_smoke.py --aggregate-only     # the fused aggregate alone, see the end
+    python3 chip_smoke.py --block-only         # the fused BasicBlock alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -14,9 +15,10 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
 1. device: card name and power limit, TF32 switches
 2. build: all five CUDA libraries from ``human_pose_tpu_torch/csrc`` (one
    nvcc per source, in parallel), with ptxas registers and spills of every
-   kernel, the count of HGMMA (tensor-core) instructions in the fused
-   BasicBlock's library and of FRND (round-to-integer, conversion unit)
-   instructions in each kernel of the dense and the phase refine's
+   kernel, the count of HGMMA (tensor-core) instructions in each instance of
+   the fused BasicBlock (TF32 operands in every float32 one) and of FRND
+   (round-to-integer, conversion unit) instructions in each kernel of the
+   dense and the phase refine's
 3. kernel parity at main-path shapes, CUDA kernel vs its plain version, both
    on the card: the dense refine (E=1, E=2, ties within and across its row
    splits, a ragged row length with mixed counts) and the grouping; the
@@ -69,6 +71,13 @@ kernel on both and over a sweep of strip heights, times the write floor
 (``fill_`` of two tensors of the outputs' size) and the fused and the dense
 decode on both inputs, reads the SM clock under load, and prints one JSON
 object last (no ``ok`` line).
+
+``--block-only`` is the same loop for the fused BasicBlock: it builds its
+library, counts the HGMMA of each instance, runs the block's parity at the
+four W32 branch shapes in both dtypes, and times the kernel on weights packed
+once and with packing, cuDNN's conv pair (float32 also with TF32 on), the
+bound and the 3xTF32 floor, with each instance's tile, grid and blocks an
+SM; it prints one JSON object last (no ``ok`` line).
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ SEED = 0
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12
+PEAK_TF32_S = 495e12
 # HRNet-W32 branch shapes of a 512x512 input: (channels, height = width)
 W32_BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))
 
@@ -201,13 +211,6 @@ def dump_sass(build, name: str) -> str | None:
                           text=True, timeout=300, check=True).stdout
 
 
-def count_sass(build, name: str, opcode: str) -> int | None:
-    """Instructions of ``opcode`` in the SASS of library ``name`` (None when
-    the toolkit has no cuobjdump)."""
-    sass = dump_sass(build, name)
-    return None if sass is None else sum(opcode in line for line in sass.splitlines())
-
-
 def sass_by_kernel(sass: str, opcodes) -> dict:
     """``{kernel: {opcode: count, "all": instructions}}`` of a SASS dump, one
     entry per kernel function (template instances told apart)."""
@@ -224,6 +227,29 @@ def sass_by_kernel(sass: str, opcodes) -> dict:
             for op in opcodes:
                 entry[op] += bool(re.search(rf"\b{op}\b", line))
     return out
+
+
+TF32_HGMMA = r"HGMMA\.\S*TF32"  # a wgmma with TF32 operands, e.g. HGMMA.64x32x8.F32.TF32
+
+
+def block_hgmma(build) -> dict | None:
+    """Per instance of the fused BasicBlock's library, its HGMMA (``wgmma``)
+    instructions and those with TF32 operands. Raises when an instance has
+    no HGMMA, or a float32 one (``tf32_block_kernel``) none with TF32
+    operands: its products would not run on the tensor cores. None when the
+    toolkit has no cuobjdump."""
+    sass = dump_sass(build, "fused_basic_block")
+    if sass is None:
+        return None
+    counts = {kname: {"hgmma": c["HGMMA"], "hgmma_tf32": c[TF32_HGMMA]}
+              for kname, c in sass_by_kernel(sass, ("HGMMA", TF32_HGMMA)).items()
+              if kname.startswith(("bf16_block_kernel", "tf32_block_kernel"))}
+    log(f"fused_basic_block SASS, HGMMA (TF32) per instance: {counts}")
+    bad = [k for k, c in counts.items() if c["hgmma"] == 0 or (k.startswith("tf32") and c["hgmma_tf32"] == 0)]
+    if len(counts) < 10 or bad:
+        raise AssertionError(f"fused_basic_block: instances without tensor-core (TF32) products: {bad} "
+                             f"of {sorted(counts)}")
+    return counts
 
 
 def log_refine_sass(build, lib: str = "refine_argmax") -> dict:
@@ -540,6 +566,13 @@ def refine_phase_bound(avg, tags, prev):
     e, p = tags.shape[2], prev.shape[1]
     nbytes = 4 * (avg.numel() + tags.numel() + prev.numel() + 2 * b * k * p)
     return bound(nbytes, (avg.numel() // (b * k)) * b * k * p * (3 * e + 4))
+
+
+def tf32_floor(x) -> float:
+    """ms of the 3xTF32 design's products alone: three TF32 products a term
+    at the tensor cores' TF32 peak (the float32 block's floor on the card)."""
+    b, h, w, c = x.shape
+    return 3 * 2 * 2 * 9 * c * c * h * w * b / PEAK_TF32_S * 1e3
 
 
 def conv_bound(x):
@@ -905,6 +938,61 @@ def basic_block_parity(dev, gen):
     return rows
 
 
+def cudnn_pair(x, w1, b1, w2, b2):
+    """One call of cuDNN computing the block on these inputs: two conv calls
+    with bias (channels_last, x's type), the add and the ReLU."""
+    import torch
+    import torch.nn.functional as F
+
+    lib_w = [t.to(x.dtype) for t in (w1.permute(3, 2, 0, 1), b1, w2.permute(3, 2, 0, 1), b2)]
+    lib_w[0] = lib_w[0].contiguous(memory_format=torch.channels_last)
+    lib_w[2] = lib_w[2].contiguous(memory_format=torch.channels_last)
+    x_cl = x.permute(0, 3, 1, 2)  # the NHWC tensor as a channels_last NCHW view
+
+    def library():
+        y = torch.relu(F.conv2d(x_cl, lib_w[0], lib_w[1], padding=1))
+        return torch.relu(F.conv2d(y, lib_w[2], lib_w[3], padding=1) + x_cl)
+    return library
+
+
+def block_times(rows, smi: str) -> list:
+    """Each record of ``basic_block_parity`` timed (CUDA events, median of
+    three windows): the kernel on weights packed once (``ms``) and with
+    packing (the ``fused_basic_block`` call), the plain version, cuDNN's
+    pair, the bound and, for float32, the 3xTF32 floor; with the instance's
+    tile, grid and waves over the card's SMs."""
+    import torch
+
+    from human_pose_tpu_torch.ops import cuda_conv
+
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for r in rows:
+        x, w1, b1, w2, b2 = r["inputs"]
+        packed = cuda_conv.pack_block_weights(w1, b1, w2, b2, dtype=x.dtype)
+        b, h, w, c = x.shape
+        tile = cuda_conv.kernel_tile(c, x.dtype)
+        grid = [-(-w // tile["tw"]), -(-h // tile["th"]), b]
+        b_ms, b_by = conv_bound(x)
+        rec = {key: r[key] for key in ("c", "hw", "dtype", "max_abs_err", "tol")}
+        rec.update({
+            "ms": cuda_ms(lambda: cuda_conv.fused_basic_block_packed(x, *packed), iters=10),
+            "ms_with_packing": cuda_ms(lambda: cuda_conv.fused_basic_block(*r["inputs"]), iters=10),
+            "plain_ms": cuda_ms(lambda: cuda_conv.fused_basic_block_plain(*r["inputs"]), iters=5),
+            "library_ms": cuda_ms(cudnn_pair(*r["inputs"]), iters=10), "bound_ms": b_ms, "bound_by": b_by,
+            "tile": tile, "grid": grid,
+            "waves": grid[0] * grid[1] * grid[2] / (sm_count * max(tile["blocks_per_sm"], 1))})
+        if x.dtype == torch.float32:
+            rec["floor_ms"] = tf32_floor(x)
+        out.append(rec)
+        log(f"fused block C={c} {r['hw']}^2 {r['dtype']}: {rec['ms']:.4f} ms (with weight packing "
+            f"{rec['ms_with_packing']:.4f}), plain {rec['plain_ms']:.3f}, cuDNN pair {rec['library_ms']:.4f}, "
+            f"bound {b_ms:.4f} ({b_by}), 3xTF32 floor {rec.get('floor_ms', float('nan')):.4f}; tile "
+            f"{tile['th']}x{tile['tw']} KCH {tile['kch']} stages {tile['stages']}, "
+            f"{tile['blocks_per_sm']} blocks/SM, grid {grid}  [{smi}]")
+    return out
+
+
 def w32_blocks(model, gen):
     """``(block, input size)`` for copies of the first BasicBlock of every
     branch of the first HR block of stages 2-4 of ``model`` (9 blocks,
@@ -1145,11 +1233,44 @@ def aggregate_only(dev, rng, smi: str) -> int:
     return 0
 
 
+def block_only(dev, gen, smi: str) -> int:
+    """The short loop for the fused BasicBlock: build, HGMMA per instance,
+    parity at the four W32 branch shapes in both dtypes, then the times of
+    ``block_times`` after a 3 s warm-up, and cuDNN's float32 pair with TF32
+    on (one TF32 product: an example, not a target; it misses 1e-4). Prints
+    one JSON object last."""
+    import torch
+
+    from human_pose_tpu_torch.ops import _build, cuda_conv
+
+    secs = _build.build_kernels(("fused_basic_block",))
+    log(f"build: {secs}")
+    log_build(_build)
+    sass = block_hgmma(_build)
+    rows = basic_block_parity(dev, gen)
+    x, w1, b1, w2, b2 = rows[0]["inputs"]
+    packed = cuda_conv.pack_block_weights(w1, b1, w2, b2, dtype=x.dtype)
+    warm_up(lambda: (cuda_conv.fused_basic_block_packed(x, *packed), torch.cuda.synchronize()), 3.0)
+    shapes = block_times(rows, smi)
+    for r, rec in zip(rows, shapes):
+        if rec["dtype"] == "float32":
+            want = cuda_conv.fused_basic_block_plain(*r["inputs"])  # TF32 off
+            pair = cudnn_pair(*r["inputs"])
+            torch.backends.cudnn.allow_tf32 = True
+            rec["library_tf32_ms"] = cuda_ms(pair, iters=10)
+            rec["library_tf32_max_abs_err"] = float((pair().permute(0, 2, 3, 1) - want).abs().max())
+            torch.backends.cudnn.allow_tf32 = False
+    clocks = clocks_under_load(lambda: cuda_conv.fused_basic_block_packed(x, *packed), 2000)
+    log(f"SM clock, max, power under load: {clocks}  [{smi}]")
+    print(json.dumps({"block_only": {"card": smi, "build_s": secs, "sass": sass, "shapes": shapes,
+                                     "clocks_sm_under_load": clocks}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
 
     import torch
-    import torch.nn.functional as F
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--refine-only", action="store_true",
@@ -1158,6 +1279,8 @@ def main() -> int:
                         help="build, check and time the phase refine kernel alone")
     parser.add_argument("--aggregate-only", action="store_true",
                         help="build, check and time the fused aggregate kernel alone")
+    parser.add_argument("--block-only", action="store_true",
+                        help="build, check and time the fused BasicBlock kernel alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1197,16 +1320,15 @@ def main() -> int:
         return phase_refine_only(dev, rng, smi)
     if args.aggregate_only:
         return aggregate_only(dev, rng, smi)
+    if args.block_only:
+        return block_only(dev, gen, smi)
 
     # 2. build
     t0 = time.perf_counter()
     secs = _build.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f}s wall, per kernel {secs}")
     log_build(_build)
-    hgmma = count_sass(_build, "fused_basic_block", "HGMMA")
-    log(f"fused_basic_block: {hgmma} HGMMA instructions in its SASS (cuobjdump --dump-sass)")
-    if hgmma == 0:
-        raise AssertionError("fused_basic_block: no HGMMA in the built library: the tensor cores are unused")
+    hgmma = block_hgmma(_build)
     refine_sass = log_refine_sass(_build)
     phase_sass = log_refine_sass(_build, "refine_argmax_phase")
 
@@ -1387,14 +1509,17 @@ def main() -> int:
                  for xx in (x, x.to(torch.bfloat16))],
         "W32 BasicBlocks through the fused block (float32, bfloat16)",
         {"fused_basic_block": 2 * len(blocks)})
-    fold_err, bf16_rel = 0.0, 0.0
+    fold_errs, bf16_rel = [], 0.0
     with torch.no_grad():
         for i, (blk, x, f) in enumerate(zip(blocks, block_x, folded)):
             want = blk(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-            fold_err = max(fold_err, float((outs[2 * i] - want).abs().max()))
+            fold_errs.append((x.shape[-1], float((outs[2 * i] - want).abs().max())))
             want_bf16 = cuda_conv.fused_basic_block_plain(x.to(torch.bfloat16), *f).float()
             bf16_rel = max(bf16_rel, float((outs[2 * i + 1].float() - want_bf16).abs().max()
                                            / want_bf16.abs().max()))
+    fold_err = max(err for _, err in fold_errs)
+    log(f"folded W32 BasicBlocks, float32 vs eval forward by C: "
+        + ", ".join(f"C={c} {err:.3g}" for c, err in fold_errs))
     if fold_err > 1e-4 or bf16_rel > 2 ** -6:
         raise AssertionError(f"folded W32 BasicBlocks: float32 vs eval forward {fold_err}, "
                              f"bfloat16 vs plain {bf16_rel} of the output scale")
@@ -1502,33 +1627,7 @@ def main() -> int:
             BATCH * K, avg_in.shape[4], avg_in.shape[5], tl_in.shape[2],
             torch.cuda.get_device_properties(dev).multi_processor_count),
         sass=phase_sass))
-    per_shape = []
-    for r in block_rows:
-        x, w1, b1, w2, b2 = r["inputs"]
-        lib_w = [t.to(x.dtype) for t in (w1.permute(3, 2, 0, 1), b1, w2.permute(3, 2, 0, 1), b2)]
-        lib_w[0] = lib_w[0].contiguous(memory_format=torch.channels_last)
-        lib_w[2] = lib_w[2].contiguous(memory_format=torch.channels_last)
-        x_cl = x.permute(0, 3, 1, 2)  # the NHWC tensor as a channels_last NCHW view
-
-        def library(x_cl=x_cl, lib_w=lib_w):  # cuDNN: two conv calls with bias, add, ReLU
-            y = torch.relu(F.conv2d(x_cl, lib_w[0], lib_w[1], padding=1))
-            return torch.relu(F.conv2d(y, lib_w[2], lib_w[3], padding=1) + x_cl)
-
-        b_ms, b_by = conv_bound(x)
-        call_ms = cuda_ms(lambda: cuda_conv.fused_basic_block(*r["inputs"]), iters=10)
-        if x.dtype == torch.bfloat16:  # the kernel alone, on weights packed once
-            packed = cuda_conv.pack_block_weights(w1, b1, w2, b2)
-            k_ms = cuda_ms(lambda: cuda_conv.fused_basic_block_packed(x, *packed), iters=10)
-        else:
-            k_ms = call_ms
-        per_shape.append({
-            "c": r["c"], "hw": r["hw"], "dtype": r["dtype"], "max_abs_err": r["max_abs_err"],
-            "tol": r["tol"], "ms": k_ms, "ms_with_packing": call_ms,
-            "plain_ms": cuda_ms(lambda: cuda_conv.fused_basic_block_plain(*r["inputs"]), iters=5),
-            "library_ms": cuda_ms(library, iters=10), "bound_ms": b_ms, "bound_by": b_by})
-        log(f"fused block C={r['c']} {r['hw']}^2 {r['dtype']}: {k_ms:.3f} ms (with weight packing "
-            f"{call_ms:.3f}), plain {per_shape[-1]['plain_ms']:.3f}, cuDNN pair "
-            f"{per_shape[-1]['library_ms']:.3f}, bound {b_ms:.4f} ({b_by})  [{smi}]")
+    per_shape = block_times(block_rows, smi)
     head_row = next(r for r in per_shape if r["dtype"] == "bfloat16")  # C=32 at 128^2, bf16
     errs["fused_basic_block"] = head_row["max_abs_err"]
     kernels.append(row(
@@ -1541,7 +1640,8 @@ def main() -> int:
               "in per_shape",
         per_shape=per_shape, fold_max_abs_err=fold_err, w32_bf16_rel_err=bf16_rel,
         hgmma_instructions=hgmma,
-        float32={f"C{r['c']} {r['hw']}^2": {key: r[key] for key in ("ms", "bound_ms", "bound_by", "library_ms")}
+        float32={f"C{r['c']} {r['hw']}^2": {key: r[key] for key in (
+            "ms", "ms_with_packing", "bound_ms", "bound_by", "floor_ms", "library_ms", "grid", "tile")}
                  for r in per_shape if r["dtype"] == "float32"}))
     print("kernels: " + "; ".join(
         f"{r['name']} replaces={r['replaces']} {REPLACES[r['name']][1]} launches={r['launches']} "

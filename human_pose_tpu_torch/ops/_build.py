@@ -11,8 +11,8 @@ The kernels are compiled without fast math and with ``--fmad=false``: a
 fused multiply-add in the squared-distance sum, or an approximate ``sqrtf``,
 can move a tag distance across a ``.5`` rounding boundary and flip an
 assignment against the plain version, and the fused front end's lerps are
-bit-equal to the plain version only unfused. The convolution kernel asks for
-its fused multiply-adds explicitly (``fmaf``) or runs on the tensor cores.
+bit-equal to the plain version only unfused. The convolution kernel runs
+its products on the tensor cores.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 
 # ctypes signatures of each library's launch functions: every pointer and
 # the stream as c_void_p (a bare int would be cut to 32 bits)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "match_by_tag": {"launch_match_by_tag": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]},
     "refine_argmax": {"launch_refine_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
@@ -44,8 +44,9 @@ SIGNATURES = {
     "refine_argmax_phase": {"launch_refine_argmax_phase":
                             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "fused_basic_block": {
-        "launch_fused_basic_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "launch_fused_basic_block": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "launch_fused_basic_block_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "fused_basic_block_tile": [_I, _I, _IP],
     },
 }
 

@@ -8,6 +8,10 @@ the folded weights are the same float32 operations on the same values, held
 to 1e-6. With bfloat16 input and weights the intermediate activation is
 rounded to bfloat16, and a value at a rounding boundary can round either
 way under another summation order: 2**-6 of the output scale.
+
+On the card the float32 block runs as 3xTF32 (each operand split into a
+TF32 high part and the rest, three TF32 products a term); its split, its
+packed weights and its arithmetic, emulated in float64, are checked here.
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ from human_pose_tpu_torch.ops import (
     fold_basic_block, fold_conv_bn, fused_basic_block, fused_basic_block_plain,
     reference_basic_block,
 )
-from human_pose_tpu_torch.ops.cuda_conv import chunk_channels, pack_block_weights, padded_channels
+from human_pose_tpu_torch.ops.cuda_conv import (
+    chunk_channels, fused_basic_block_packed, pack_block_weights, padded_channels, tf32_split,
+)
 from human_pose_tpu_torch.utils import weights
 from tests.test_torch_port_models import SHALLOW, _randomize, _to_tensors
 
@@ -125,6 +131,136 @@ def test_pack_block_weights_layout(c):
             off = chunk * kch * cp + ((ks * (cp // 8) + ng) * 2 + kk // 8) * 64 + n8 * 8 + kk % 8
             assert wpack[off] == w.reshape(9, c, c)[tap, ci, co].to(torch.bfloat16)
     assert torch.equal(bias[0, :c], b1) and torch.equal(bias[1, :c], b2) and not bias[:, c:].any()
+
+
+def _tf32_reference(w: np.ndarray) -> np.ndarray:
+    """float32 -> TF32 by magnitude and sign: round to nearest at mantissa
+    bit 13, ties away from zero (``cvt.rna.tf32.f32``)."""
+    u = w.astype(np.float32).view(np.uint32)
+    mag = ((u & np.uint32(0x7FFFFFFF)) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return (mag | (u & np.uint32(0x80000000))).view(np.float32)
+
+
+def _tf32_truncate(t: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores take of a float32 operand: its low 13 mantissa
+    bits cleared."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split_inputs(kind: str) -> np.ndarray:
+    rng = np.random.RandomState(7)
+    if kind == "random":
+        return (rng.randn(4096) * 10.0 ** rng.uniform(-30, 30, 4096)).astype(np.float32)
+    if kind == "subnormal":  # exponent field 0, random mantissas and signs
+        bits = rng.randint(1, 1 << 23, 4096).astype(np.uint32) | (rng.randint(0, 2, 4096).astype(np.uint32) << 31)
+        return bits.view(np.float32)
+    if kind == "large":
+        return (rng.choice([-1.0, 1.0], 4096) * rng.uniform(1e37, 3e38, 4096)).astype(np.float32)
+    # ties: the low 13 mantissa bits exactly half a TF32 ulp, random exponents and signs
+    bits = (rng.randint(1, 254, 4096).astype(np.uint32) << 23) | (rng.randint(0, 1 << 10, 4096).astype(np.uint32) << 13)
+    bits |= np.uint32(0x1000) | (rng.randint(0, 2, 4096).astype(np.uint32) << 31)
+    return bits.view(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "subnormal", "large", "ties"])
+def test_tf32_split(kind):
+    """``hi`` is TF32 (low 13 mantissa bits zero), equals a NumPy rounding to
+    nearest with ties away from zero, and ``hi + lo == w`` exactly."""
+    w = _split_inputs(kind)
+    hi, lo = tf32_split(torch.from_numpy(w))
+    assert hi.dtype == lo.dtype == torch.float32
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert np.array_equal(hi.numpy().view(np.uint32), _tf32_reference(w).view(np.uint32))
+    assert torch.equal(hi.double() + lo.double(), torch.from_numpy(w).double())
+    assert torch.equal(hi + lo, torch.from_numpy(w))
+    if kind == "ties":  # every value rounds away from zero
+        assert bool((hi.abs() > torch.from_numpy(w).abs()).all())
+
+
+@pytest.mark.parametrize("c", [4, 12, 32, 48, 64, 128, 256])
+def test_pack_block_weights_f32_layout(c):
+    """The float32 pack unpacks to the TF32 high and low HWIO weights,
+    padded channels are zero, each element sits where the kernel's
+    descriptors read it (k8 step, part, output-channel group, input-channel
+    half, n8, k4), and the biases are laid out [b1; b2] with zeros past C."""
+    rng = np.random.RandomState(c + 1)
+    w1, w2 = (torch.from_numpy(rng.randn(3, 3, c, c).astype(np.float32)) for _ in range(2))
+    b1, b2 = (torch.from_numpy(rng.randn(c).astype(np.float32)) for _ in range(2))
+    wpack, bias = pack_block_weights(w1, b1, w2, b2, dtype=torch.float32)
+    cp = padded_channels(c)
+    assert wpack.dtype == torch.float32 and wpack.numel() == 2 * 9 * cp * cp * 2
+    # unpack: [conv, tap, ks, part, ng, kh, n8, k4] -> [conv, part, tap, ci, co]
+    w = wpack.reshape(2, 9, cp // 8, 2, cp // 8, 2, 8, 4).permute(0, 3, 1, 2, 5, 7, 4, 6)
+    w = w.reshape(2, 2, 3, 3, cp, cp)
+    for conv, wc in enumerate((w1, w2)):
+        hi, lo = tf32_split(wc)
+        assert torch.equal(w[conv, 0, ..., :c, :c], hi) and torch.equal(w[conv, 1, ..., :c, :c], lo)
+        assert not w[conv, :, :, :, c:].any() and not w[conv, ..., c:].any()
+    for conv, wc in enumerate((w1, w2)):
+        hi, lo = tf32_split(wc.reshape(9, c, c))
+        for tap, ci, co in ((0, 0, 0), (4, c - 1, c - 2), (8, c // 2 + 1, c // 3), (7, 3, c - 1)):
+            ks, k = divmod(ci, 8)
+            kh, k4 = divmod(k, 4)
+            ng, n8 = divmod(co, 8)
+            for part, want in enumerate((hi, lo)):
+                off = ((((conv * 9 + tap) * (cp // 8) + ks) * 2 + part) * 8 * cp
+                       + (ng * 2 + kh) * 32 + n8 * 4 + k4)
+                assert wpack[off] == want[tap, ci, co]
+    assert torch.equal(bias[0, :c], b1) and torch.equal(bias[1, :c], b2) and not bias[:, c:].any()
+
+
+def _tf32_products(x_nchw: torch.Tensor, w_hwio: torch.Tensor, products: int) -> torch.Tensor:
+    """conv3x3 (SAME) in float64 as the tensor cores take it: the float32
+    operands split by ``tf32_split``, the low parts truncated to TF32;
+    ``products`` 3 is lo*hi + hi*lo + hi*hi, 1 is hi*hi alone."""
+    xh, xl = tf32_split(x_nchw)
+    wh, wl = tf32_split(w_hwio.permute(3, 2, 0, 1).contiguous())
+    pairs = [(xh, wh)] if products == 1 else [(_tf32_truncate(xl), wh), (xh, _tf32_truncate(wl)), (xh, wh)]
+    return sum(torch.nn.functional.conv2d(a.double(), b.double(), padding=1) for a, b in pairs)
+
+
+def _tf32_block(x, w1, b1, w2, b2, products):
+    """The float32 kernel's arithmetic emulated on the CPU: each conv's sum
+    in float64 (the card sums in float32: both far finer than 1e-4), the
+    intermediate activation rounded to float32 before it is split again."""
+    xf = x.permute(0, 3, 1, 2)
+    y = torch.relu(_tf32_products(xf, w1, products) + b1.double()[:, None, None]).float()
+    z = _tf32_products(y, w2, products) + b2.double()[:, None, None] + xf.double()
+    return torch.relu(z).float().permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("shape,products,within", [
+    ((2, 16, 16, 256), 3, True), ((2, 32, 32, 32), 3, True), ((2, 16, 16, 256), 1, False)])
+def test_tf32_arithmetic_emulated(shape, products, within):
+    """Three TF32 products a term stay within 1e-4 of the plain float32
+    block at a W32-like C = 256 and at C = 32; one product (hi * hi, plain
+    TF32) does not at C = 256."""
+    rng = np.random.RandomState(shape[-1])
+    c = shape[-1]
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    w1, w2 = (torch.from_numpy((rng.randn(3, 3, c, c) / np.sqrt(9 * c)).astype(np.float32)) for _ in range(2))
+    b1, b2 = (torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32)) for _ in range(2))
+    err = float((_tf32_block(x, w1, b1, w2, b2, products) - fused_basic_block_plain(x, w1, b1, w2, b2)).abs().max())
+    assert (err <= 1e-4) == within, err
+
+
+@pytest.mark.parametrize("case", ["size", "dtype", "device", "bf16_pack"])
+def test_fused_block_packed_refuses_f32_pack(case):
+    """A float32 pack of the wrong size, dtype or device is refused with
+    ValueError before anything is launched."""
+    x = torch.zeros((1, 4, 4, 32))
+    wpack, bias = pack_block_weights(*(torch.zeros(s) for s in ((3, 3, 32, 32), (32,), (3, 3, 32, 32), (32,))),
+                                     dtype=torch.float32)
+    if case == "size":
+        wpack = wpack[: wpack.numel() // 2]
+    elif case == "dtype":
+        wpack = wpack.double()
+    elif case == "device":
+        wpack = wpack.to("meta")
+    else:  # the bf16 pack of the same weights
+        wpack, bias = pack_block_weights(*(torch.zeros(s) for s in ((3, 3, 32, 32), (32,), (3, 3, 32, 32), (32,))))
+    with pytest.raises(ValueError, match="packed weights"):
+        fused_basic_block_packed(x, wpack, bias)
 
 
 def test_fused_block_rejects_bad_shapes():

@@ -8,10 +8,10 @@ so it runs on a machine without them:
 
 The decode kernels repeat their plain versions' float32 arithmetic step for
 step, so those comparisons are exact. The fused BasicBlock sums its
-convolutions in another order than cuDNN: float32 within 1e-4 (TF32 off),
-bfloat16 (bf16 operands on the tensor cores) within 2**-6 of the output's
-scale, a few bf16 ulps: an intermediate value at a bf16 rounding boundary
-can round either way.
+convolutions in another order than cuDNN: float32 (3xTF32 on the tensor
+cores) within 1e-4 (TF32 off in cuDNN), bfloat16 (bf16 operands on the
+tensor cores) within 2**-6 of the output's scale, a few bf16 ulps: an
+intermediate value at a bf16 rounding boundary can round either way.
 """
 
 from __future__ import annotations
@@ -491,25 +491,29 @@ def test_match_per_image_kernel_equals_plain_and_batched(dev):
     assert torch.equal(bat_j, got_j) and torch.equal(bat_c, got_c)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [
-    (2, 32, 32, 32), (2, 16, 16, 64), (1, 8, 12, 128), (2, 8, 8, 256), (1, 5, 7, 12),
-    # the four W32 branch shapes, and H, W off the tile grid with C = 12, 48 (padded to 16, 64)
-    (2, 128, 128, 32), (2, 64, 64, 64), (2, 32, 32, 128), (2, 16, 16, 256),
-    (2, 19, 9, 12), (1, 21, 37, 48), (1, 9, 23, 128), (1, 13, 11, 256),
-])
-def test_fused_basic_block_kernel_vs_plain(dev, shape, dtype):
-    """float32 on CUDA cores, bfloat16 on the tensor cores (against the
-    plain version on bf16-rounded weights); for bfloat16 a second call on
-    weights packed once gives the same bits."""
-    from human_pose_tpu_torch.ops.cuda_conv import fused_basic_block_packed, pack_block_weights
-
+def _block_inputs(shape, dev, dtype):
     rng = np.random.RandomState(shape[-1])
     c = shape[-1]
     x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
     w1, w2 = (rng.randn(3, 3, c, c).astype(np.float32) / np.sqrt(9 * c) for _ in range(2))
     b1, b2 = (rng.randn(c).astype(np.float32) * 0.1 for _ in range(2))
-    ws = [torch.from_numpy(a).to(dev) for a in (w1, b1, w2, b2)]
+    return x, [torch.from_numpy(a).to(dev) for a in (w1, b1, w2, b2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 32, 32, 32), (2, 16, 16, 64), (1, 8, 12, 128), (2, 8, 8, 256), (1, 5, 7, 12),
+    # the four W32 branch shapes, and H, W off the tile grid with C = 12, 48 (padded to 16, 64)
+    (2, 128, 128, 32), (2, 64, 64, 64), (2, 32, 32, 128), (2, 16, 16, 256),
+    (2, 19, 9, 12), (1, 21, 37, 48), (1, 9, 23, 128), (1, 13, 11, 256), (3, 17, 9, 256),
+])
+def test_fused_basic_block_kernel_vs_plain(dev, shape, dtype):
+    """float32 as 3xTF32, bfloat16 as bf16 products (against the plain
+    version on bf16-rounded weights), both on the tensor cores; a second
+    call on weights packed once gives the same bits."""
+    from human_pose_tpu_torch.ops.cuda_conv import fused_basic_block_packed, pack_block_weights
+
+    x, ws = _block_inputs(shape, dev, dtype)
     want = fused_basic_block_plain(x, *ws).float()
     before = fused_basic_block.launches
     got = fused_basic_block(x, *ws)
@@ -519,8 +523,59 @@ def test_fused_basic_block_kernel_vs_plain(dev, shape, dtype):
     err = float((got.float() - want).abs().max())
     tol = 1e-4 if dtype == torch.float32 else 2 ** -6 * float(want.abs().max())
     assert err <= tol, (err, tol)
-    if dtype == torch.bfloat16:
-        assert torch.equal(fused_basic_block_packed(x, *pack_block_weights(*ws)), got)
+    assert torch.equal(fused_basic_block_packed(x, *pack_block_weights(*ws, dtype=dtype)), got)
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 32), (2, 16, 16, 256)])
+def test_fused_basic_block_f32_scaled_input(dev, shape):
+    """float32 x scaled by 64: within 1e-4 of the output's scale (the split
+    loses about 2**-21 of each term, whatever its size)."""
+    x, ws = _block_inputs(shape, dev, torch.float32)
+    x = x * 64
+    want = fused_basic_block_plain(x, *ws)
+    err = float((fused_basic_block(x, *ws) - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_basic_block_packed_counts_each_launch(dev, dtype):
+    """One counted launch per call on weights packed once, and the same bits
+    every call."""
+    from human_pose_tpu_torch.ops.cuda_conv import fused_basic_block_packed, pack_block_weights
+
+    x, ws = _block_inputs((2, 24, 20, 64), dev, dtype)
+    packed = pack_block_weights(*ws, dtype=dtype)
+    before = fused_basic_block.launches
+    outs = [fused_basic_block_packed(x, *packed) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fused_basic_block.launches == before + 3
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.parametrize("c,hw", [(32, 128), (64, 64), (128, 32), (256, 16)])
+def test_fused_basic_block_folded_w32_block(dev, c, hw):
+    """A W32 branch's BasicBlock with LeCun-normal weights and seeded BN
+    statistics, folded: the float32 kernel within 1e-4 of the block's own
+    eval forward (cuDNN, TF32 off), batch 24 as on the main path. Folded BN
+    scales up to ~1.8 make these sums larger than the random-weight cases."""
+    from human_pose_tpu_torch.models import init_flax_default_
+    from human_pose_tpu_torch.models.hrnet import BasicBlock
+    from human_pose_tpu_torch.ops import fold_basic_block
+
+    gen = torch.Generator().manual_seed(c)
+    blk = init_flax_default_(BasicBlock(c, c), gen).eval()
+    with torch.no_grad():
+        for bn in (blk.bn1, blk.bn2):
+            bn.weight.copy_(1.0 + 0.1 * torch.randn(c, generator=gen))
+            bn.bias.copy_(0.1 * torch.randn(c, generator=gen))
+            bn.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+            bn.running_var.copy_(0.5 + torch.rand(c, generator=gen))
+    blk = blk.to(dev)
+    x = torch.rand((24, hw, hw, c), generator=gen).to(dev)
+    with torch.no_grad():
+        want = blk(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    err = float((fused_basic_block(x, *fold_basic_block(blk)) - want).abs().max())
+    assert err <= 1e-4, err
 
 
 def test_decode_fused_card_equals_cpu(dev):
