@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase-refine-only  # the phase refine alone, see the end
     python3 chip_smoke.py --aggregate-only     # the fused aggregate alone, see the end
     python3 chip_smoke.py --block-only         # the fused BasicBlock alone, see the end
+    python3 chip_smoke.py --infer-only         # the inference model's phase alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -39,7 +40,17 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    scene, the agreement on the forward's outputs printed; the per-image
    grouping entry on the scene's candidates; the W32 model's BasicBlocks
    folded and run through the fused block in float32 and in bfloat16
-6. timing: forward, decode and img/s (CUDA events and host wall clock), a
+6. the inference model (``InferenceKeypointsModel``) on the W32 weights for
+   a 480x640 raw image: (a) one scale, (b) flip, (c) scales 0.5, 1, 2 with
+   flip, (d) flip with compact uint8 inputs bucketed to multiples of 128;
+   each with the counters zeroed and exactly one launch of the dense refine
+   and of the grouping required, card decode == CPU decode of the card's
+   own aggregated maps, (a)'s float32 forward == CPU (rel 1e-3), (d)'s pad
+   region free of joints, ms an image in float32 and bfloat16, the E=2
+   kernels' own times; the repaired downsampling resize card == CPU; the
+   whole ``__call__`` (cv2's warp on the host) in (c) with its COCO
+   detections
+7. timing: forward, decode and img/s (CUDA events and host wall clock), a
    per-kernel profiler breakdown of one forward+decode with the device's
    idle share and of one fused and one dense decode alone, fused vs dense
    decode, each kernel vs its plain version, its bound and, where one
@@ -78,10 +89,15 @@ four W32 branch shapes in both dtypes, and times the kernel on weights packed
 once and with packing, cuDNN's conv pair (float32 also with TF32 on), the
 bound and the 3xTF32 floor, with each instance's tile, grid and blocks an
 SM; it prints one JSON object last (no ``ok`` line).
+
+``--infer-only`` builds the dense refine and the grouping and runs phase 6
+alone on the W32 model; it prints the phase's record as one JSON object
+last (no ``ok`` line).
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -125,6 +141,18 @@ SOURCES = {
     "fused_aggregate": "human_pose_tpu_torch/csrc/fused_aggregate.cu",
     "refine_argmax_phase": "human_pose_tpu_torch/csrc/refine_argmax_phase.cu",
     "fused_basic_block": "human_pose_tpu_torch/csrc/fused_basic_block.cu",
+}
+
+
+# the inference model's configurations (phase 6): a 480x640 raw image at
+# input size 512, W32 at the published eval point; (d) compact uint8 inputs
+# bucketed to multiples of 128
+INFER_RAW_HW = (480, 640)
+INFER_CONFIGS = {
+    "a": {"scales": (1.0,)},
+    "b": {"scales": (1.0,), "use_flip": True},
+    "c": {"scales": (0.5, 1.0, 2.0), "use_flip": True},
+    "d": {"scales": (1.0,), "use_flip": True, "compact_inputs": True, "pad_multiple": 128},
 }
 
 
@@ -1028,6 +1056,200 @@ def dense_stage_inputs(kpts, tags, dev):
     return stages, [torch.from_numpy(tags[:, :, 0]).to(dev)]
 
 
+def make_counted(counters: dict):
+    """``counted(fn, what, want)``: run ``fn`` with every launch counter of
+    ``counters`` zeroed just before; require exactly the launches of
+    ``want`` (and none of any other kernel). Returns (fn's result, counts)."""
+    import torch
+
+    def counted(fn, what, want):
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {key: wrapper.launches for key, wrapper in counters.items()}
+        log(f"{what} launches: {counts}")
+        if counts != {key: want.get(key, 0) for key in counters}:
+            raise AssertionError(f"{what}: launches {counts}, want {want} and no others")
+        return out, counts
+    return counted
+
+
+def infer_inputs(rng, cfg: dict, dev):
+    """Seeded uint8 device inputs ``{scale: [1, 3, h, w]}`` at the sizes
+    ``prepare_input`` gives a 480x640 raw image (``get_multi_scale_size``;
+    the pixels random, not cv2's warp), padded with ``PAD_PIXEL_U8`` to
+    ``pad_multiple``; the decode size and the valid size."""
+    import torch
+
+    from human_pose_tpu_torch.constants import PAD_PIXEL_U8
+    from human_pose_tpu_torch.data import get_multi_scale_size
+
+    raw = np.zeros((*INFER_RAW_HW, 3), np.uint8)
+    scales, m = cfg["scales"], cfg.get("pad_multiple", 64)
+    xs, valid_hw = {}, None
+    for s in scales:
+        (w, h), _, _ = get_multi_scale_size(raw, SIZE, s, min(scales))
+        x = np.empty((1, -(-h // m) * m, -(-w // m) * m, 3), np.uint8)
+        x[:] = np.asarray(PAD_PIXEL_U8, np.uint8)
+        x[:, :h, :w] = rng.integers(0, 256, (1, h, w, 3), dtype=np.uint8)
+        xs[s] = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(dev)
+        if s == 1.0:
+            valid_hw = (h, w)
+    return xs, tuple(xs[1.0].shape[2:]), valid_hw
+
+
+def infer_device_part(im, xs: dict, hw, valid_hw):
+    """The device part of ``InferenceKeypointsModel.__call__``:
+    ``forward_scale`` per scale, largest first, summed, tags from scale 1,
+    then ``_decode_aggregated``. Returns (avg_sum, tags_list, decoded)."""
+    avg_sum = tags_list = None
+    for s in sorted(xs, reverse=True):
+        avg, tags_s = im.forward_scale(xs[s], hw)
+        avg_sum = avg if avg_sum is None else avg_sum + avg
+        if s == 1.0:
+            tags_list = tags_s
+    return avg_sum, tags_list, im._decode_aggregated(avg_sum, tags_list, hw, float(len(xs)), valid_hw)
+
+
+def inference_phase(dev, model, rng, counted, smi: str) -> dict:
+    """Phase 6: the port's ``InferenceKeypointsModel`` on the W32 ``model``
+    in configurations (a)-(d), each with exactly one launch of the dense
+    refine and of the grouping, its card decode == the CPU decode of the
+    card's own aggregated maps, (a)'s float32 forward == the CPU's (rel
+    1e-3), (d)'s pad region free of joints, and ms an image in float32 and
+    bfloat16; the E=2 kernels' own times; the repaired resize on the card ==
+    the CPU; ``__call__`` on a seeded raw image in (c) with its COCO
+    detections. Returns the phase's record."""
+    import torch
+
+    from human_pose_tpu_torch.inference import InferenceKeypointsModel
+    from human_pose_tpu_torch.ops import cuda_decode, cuda_match, resize_bilinear
+
+    model_cpu = copy.deepcopy(model).cpu()
+    want = {"match_by_tag": 1, "refine_argmax": 1}
+    out = {"card": smi, "raw_hw": INFER_RAW_HW, "configs": {}}
+    e2_inputs = {}
+    for key, cfg in INFER_CONFIGS.items():
+        xs, hw, valid_hw = infer_inputs(rng, cfg, dev)
+        kw = dict(det_thr=DET_THR, tag_thr=TAG_THR, max_num_people=M, input_size=SIZE, **cfg)
+        im = InferenceKeypointsModel(model, device=dev, **kw)
+        im_cpu = InferenceKeypointsModel(model_cpu, device="cpu", **kw)
+        e = 2 if cfg.get("use_flip") else 1
+        what = f"inference ({key}) scales {cfg['scales']} E={e} decode {hw} valid {valid_hw}"
+        (avg_sum, tags_list, (joints, scores, valid, avg, tags)), launches = counted(
+            lambda: infer_device_part(im, xs, hw, valid_hw), what, want)
+        if tuple(joints.shape) != (1, M, K, 3 + e) or tuple(tags.shape) != (1, K, *hw, e):
+            raise AssertionError(f"{what}: joints {tuple(joints.shape)}, tags {tuple(tags.shape)}")
+        if not all(bool(torch.isfinite(t).all()) for t in (joints, scores, avg_sum, *tags_list)):
+            raise AssertionError(f"{what}: non-finite outputs")
+        # card decode vs the CPU path (plain kernels) on the card's own maps
+        cj, cs, cv, _, _ = im_cpu._decode_aggregated(
+            avg_sum.cpu(), [t.cpu() for t in tags_list], hw, float(len(xs)), valid_hw)
+        diff = (joints[0].cpu()[cv[0]][..., :3] - cj[0][cv[0]][..., :3]).abs()  # [persons, K, 3]
+        field_err = [float(diff[..., f].max()) if diff.numel() else 0.0 for f in range(3)]
+        err = max(field_err)
+        if not torch.equal(valid.cpu(), cv) or err > 1e-3:
+            raise AssertionError(f"{what}: card vs CPU decode: persons {int(valid.sum())} vs "
+                                 f"{int(cv.sum())}, joints differ by {err}")
+        rec = {"scales": cfg["scales"], "e": e, "decode_hw": hw, "valid_hw": valid_hw,
+               "input_hw": {str(s): tuple(x.shape[2:]) for s, x in xs.items()},
+               "launches": launches, "persons": int(valid.sum()), "card_vs_cpu_decode_err": err,
+               "card_vs_cpu_decode_err_xys": field_err,
+               "joints_differing": int((diff > 0).any(-1).sum()),
+               "largest_score": float(cj[0][cv[0]][..., 2].abs().max()) if bool(cv.any()) else 0.0}
+        log(f"{what}: {rec['persons']} persons; card == CPU decode (joints within {err:.3g}; "
+            f"x, y, score {field_err}; {rec['joints_differing']} joints differ; largest score "
+            f"{rec['largest_score']:.6g})")
+        if key == "a":
+            # the float32 forward (aggregated, resized) on the card vs the CPU
+            with torch.no_grad():
+                a_cpu, t_cpu = im_cpu.forward_scale(xs[1.0].cpu(), hw)
+            rel = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-3))
+                      for a, b in ((avg_sum, a_cpu), (tags_list[0], t_cpu[0])))
+            if rel > 1e-3:
+                raise AssertionError(f"{what}: card fp32 forward vs CPU: max rel err {rel}")
+            rec["forward_rel_err"] = rel
+            log(f"{what}: card fp32 forward == CPU (max rel err {rel:.3g} <= 1e-3)")
+        if key == "d":
+            vh, vw = valid_hw
+            jv = joints[0][valid[0]]
+            outside = int(((jv[..., 0] >= vw) | (jv[..., 1] >= vh)).sum())
+            if outside or not bool((avg[..., vh:, :] == -1e4).all() and (avg[..., vw:] == -1e4).all()):
+                raise AssertionError(f"{what}: {outside} joints of valid persons in the pad region")
+            rec["joints_in_pad_region"] = outside
+            log(f"{what}: no joint of a valid person in the pad region (x >= {vw} or y >= {vh})")
+        if e == 2:
+            e2_inputs[key] = record_kernel_inputs(lambda: infer_device_part(im, xs, hw, valid_hw))
+        for dtype in (torch.float32, torch.bfloat16):
+            im_t = im if dtype == torch.float32 else InferenceKeypointsModel(
+                model, device=dev, dtype=dtype, **kw)
+            fn = lambda: infer_device_part(im_t, xs, hw, valid_hw)  # noqa: E731
+            warm_up(lambda: (fn(), torch.cuda.synchronize()), 3.0)
+            name_ = str(dtype).split(".")[-1]
+            rec[f"ms_{name_}"] = cuda_ms(fn, iters=3, warmup=0, reps=3)
+            if key in ("b", "c"):
+                busy, groups = profile_breakdown(fn)
+                rec[f"busy_ms_{name_}"], rec[f"busy_groups_ms_{name_}"] = busy, groups
+        log(f"{what}: {rec['ms_float32']:.3f} ms an image float32, {rec['ms_bfloat16']:.3f} "
+            f"bfloat16 (CUDA events, median of 3 windows)  [{smi}]")
+        if key in ("b", "c"):
+            log(f"{what}: device busy {rec['busy_ms_float32']} ms float32, "
+                f"{rec['busy_ms_bfloat16']} ms bfloat16 (profiler, one call)")
+        out["configs"][key] = rec
+
+    # the E=2 kernels on the flip path's inputs
+    kernels = {}
+    for key, seen in e2_inputs.items():
+        hm, tg, prev, counts = seen["refine_argmax"]
+        cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
+        if not torch.equal(cuda_decode.refine_argmax_batch(hm, tg, prev, counts),
+                           cuda_decode.refine_argmax_batch_plain(hm, tg, prev, counts)):
+            raise AssertionError(f"inference ({key}): refine differs from plain at E=2")
+        kernels[key] = {
+            "refine_shape": f"B1 K{K} HW{hm.shape[2]} E{tg.shape[2]} P{prev.shape[1]}",
+            "refine_active_persons": int(counts.sum()),
+            "refine_ms": cuda_ms(lambda: cuda_decode.refine_argmax_batch(hm, tg, prev, counts), iters=20),
+            "refine_plain_ms": cuda_ms(
+                lambda: cuda_decode.refine_argmax_batch_plain(hm, tg, prev, counts), iters=2),
+            "refine_bound_ms": refine_bound(hm, tg, prev, counts)[0],
+            "match_shape": f"B1 K{K} M{cand.shape[2]} E{cand.shape[3] - 3} P{persons}",
+            "match_valid_rows": int((cand[..., 2] > DET_THR).sum()),
+            "match_ms": cuda_ms(lambda: cuda_match.match_by_tag_batched(
+                cand, det_thr, tag_thr, order, persons), iters=20),
+            "match_bound_ms": match_bound(cand, persons)[0]}
+        log(f"inference ({key}) E=2 kernels: " + ", ".join(f"{k_} {v}" for k_, v in kernels[key].items()))
+    out["e2_kernels"] = kernels
+
+    # the repaired resize: a downsample (what a scale-4 pass would give) on
+    # the card vs the CPU
+    x = torch.from_numpy(rng.standard_normal((1, K, 1024, 1536), dtype=np.float32))
+    err = float((resize_bilinear(x.to(dev), 512, 768).cpu() - resize_bilinear(x, 512, 768)).abs().max())
+    if err > 1e-6:
+        raise AssertionError(f"resize 1024x1536 -> 512x768: card vs CPU {err}")
+    out["resize_down_card_vs_cpu"] = err
+    log(f"resize_bilinear 1024x1536 -> 512x768 (antialiased): card == CPU within {err:.3g}")
+
+    # the whole __call__ (cv2's warp on the host) in (c), and its detections
+    im = InferenceKeypointsModel(model, device=dev, det_thr=DET_THR, tag_thr=TAG_THR,
+                                 max_num_people=M, input_size=SIZE, **INFER_CONFIGS["c"])
+    raw = rng.integers(0, 256, (*INFER_RAW_HW, 3), dtype=np.uint8)
+    result, _ = counted(lambda: im(raw), "inference (c) __call__ on a 480x640 raw image", want)
+    dets = result.to_coco_detections(image_id=0)
+    vh, vw = result.model_input_image.shape[:2]
+    if not (len(dets) == len(result.kpts_coords) and all(len(d["keypoints"]) == 3 * K for d in dets)
+            and np.isfinite(result.kpts_coords).all() and result.kpts_tags.shape[-1] == 2
+            and result.kpts_heatmaps.shape == (vh, vw, K)
+            and result.tags_heatmaps.shape == (vh, vw, K)):
+        raise AssertionError("inference (c) __call__: result or detections malformed")
+    warm_up(lambda: im(raw), 3.0)
+    out["call_c"] = {"persons": len(dets), "model_input_hw": im.model_input_shape,
+                     "host_wall_ms": host_ms(lambda: im(raw), iters=5)}
+    log(f"inference (c) __call__: {len(dets)} COCO detections, model input {im.model_input_shape}, "
+        f"{out['call_c']['host_wall_ms']:.3f} ms host wall an image (cv2 warp, copies, sync)  [{smi}]")
+    return out
+
+
 def refine_only(dev, rng, smi: str) -> int:
     """The short loop for the dense refine: build, SASS counts, parity, then
     its time on the main path's and the dense scene's inputs and over a
@@ -1267,6 +1489,25 @@ def block_only(dev, gen, smi: str) -> int:
     return 0
 
 
+def infer_only(dev, rng, smi: str) -> int:
+    """Phase 6 alone: build the dense refine and the grouping, then the
+    inference model's configurations on the seeded W32 model. Prints the
+    phase's record as one JSON object last."""
+    import torch
+
+    from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
+    from human_pose_tpu_torch.ops import _build, cuda_decode, cuda_match
+
+    log(f"build: per kernel {_build.build_kernels(('refine_argmax', 'match_by_tag'))}")
+    model = HigherHRNet(num_kpts=K, C=32, device=dev)
+    init_flax_default_(model, torch.Generator().manual_seed(SEED))
+    model.eval()
+    counted = make_counted({"match_by_tag": cuda_match.match_by_tag_batched,
+                            "refine_argmax": cuda_decode.refine_argmax_batch})
+    print(json.dumps({"inference": inference_phase(dev, model, rng, counted, smi)}), flush=True)
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -1281,6 +1522,8 @@ def main() -> int:
                         help="build, check and time the fused aggregate kernel alone")
     parser.add_argument("--block-only", action="store_true",
                         help="build, check and time the fused BasicBlock kernel alone")
+    parser.add_argument("--infer-only", action="store_true",
+                        help="build the decode's kernels and run the inference model's phase alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1322,6 +1565,8 @@ def main() -> int:
         return aggregate_only(dev, rng, smi)
     if args.block_only:
         return block_only(dev, gen, smi)
+    if args.infer_only:
+        return infer_only(dev, rng, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -1379,19 +1624,7 @@ def main() -> int:
         "fused_basic_block": cuda_conv.fused_basic_block,
     }
 
-    def counted(fn, what, want):
-        """Run ``fn`` with every launch counter zeroed just before; require
-        exactly the launches of ``want`` (and none of any other kernel).
-        Returns (fn's result, counts)."""
-        for wrapper in counters.values():
-            wrapper.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        counts = {key: wrapper.launches for key, wrapper in counters.items()}
-        log(f"{what} launches: {counts}")
-        if counts != {key: want.get(key, 0) for key in counters}:
-            raise AssertionError(f"{what}: launches {counts}, want {want} and no others")
-        return out, counts
+    counted = make_counted(counters)
 
     dense_want = {"match_by_tag": 1, "refine_argmax": 1}
     (hms, tags, (joints, scores, valid)), launches = counted(
@@ -1526,7 +1759,10 @@ def main() -> int:
     log(f"folded W32 BasicBlocks ({len(blocks)}, C=32..256): float32 == eval forward within "
         f"{fold_err:.3g}; bfloat16 == plain within {bf16_rel:.3g} of the output scale")
 
-    # 6. timing
+    # 6. the inference model: configurations (a)-(d), __call__ in (c)
+    infer_rec = inference_phase(dev, model, rng, counted, smi)
+
+    # 7. timing
     synced_infer = lambda: (infer(images), torch.cuda.synchronize())  # noqa: E731
     log(f"warm-up: {warm_up(synced_infer, 3.0)} forward+decode calls")
     fwd_ms = cuda_ms(lambda: forward(images), iters=10, warmup=2)
@@ -1559,7 +1795,8 @@ def main() -> int:
     fused_in = record_kernel_inputs(lambda: fused(hms, [tags]))
     paths = {"main": launches, "dense_scene": launches_dense, "fused": launches_fused,
              "fused_scene": launches_fused_scene, "per_image": launches_per_image,
-             "w32_blocks": launches_blocks}
+             "w32_blocks": launches_blocks,
+             **{f"infer_{key}": rec["launches"] for key, rec in infer_rec["configs"].items()}}
 
     def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
         return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
@@ -1580,7 +1817,10 @@ def main() -> int:
         shape=f"B{BATCH} K{K} HW{SIZE * SIZE} E{tg.shape[2]} P{M}", active_persons=int(counts.sum()),
         splits=cuda_decode.refine_splits(BATCH * K, SIZE * SIZE,
                                          torch.cuda.get_device_properties(dev).multi_processor_count),
-        sass=refine_sass))
+        sass=refine_sass,
+        ms_infer_e2={key: r["refine_ms"] for key, r in infer_rec["e2_kernels"].items()},
+        infer_e2={key: {k_: v for k_, v in r.items() if k_.startswith("refine")}
+                  for key, r in infer_rec["e2_kernels"].items()}))
     cand, _, _, order, persons = main_in["match_by_tag"]
     kernels.append(row(
         "match_by_tag", "main", "exact joints and count",
@@ -1591,7 +1831,10 @@ def main() -> int:
         ms_dense_scene=cuda_ms(lambda: cuda_match.match_by_tag_batched(*dense_in["match_by_tag"]), iters=20),
         ms_fused=cuda_ms(lambda: cuda_match.match_by_tag_batched(*fused_in["match_by_tag"]), iters=20),
         shape=f"B{BATCH} K{K} M{cand.shape[2]} E{cand.shape[3] - 3} P{persons}",
-        valid_rows=int((cand[..., 2] > DET_THR).sum())))
+        valid_rows=int((cand[..., 2] > DET_THR).sum()),
+        ms_infer_e2={key: r["match_ms"] for key, r in infer_rec["e2_kernels"].items()},
+        infer_e2={key: {k_: v for k_, v in r.items() if k_.startswith("match")}
+                  for key, r in infer_rec["e2_kernels"].items()}))
     kernels.append(row(
         "match_by_tag_per_image", "per_image", "exact joints and count; equal to match_by_tag",
         cuda_ms(lambda: cuda_match.match_by_tag_per_image(cand_s, DET_THR, TAG_THR, order_s, persons_s),
@@ -1661,6 +1904,7 @@ def main() -> int:
                               "fused_vs_dense": {"person_slots_differ": persons_differ,
                                                  "joints_differ": joints_differ},
                               "card": smi}}), flush=True)
+    print(json.dumps({"inference": infer_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -10,6 +10,10 @@ so each counterpart is easy to find:
   (``csrc/``) on CUDA tensors and as their plain PyTorch versions on CPU
   tensors
 * ``utils.weights`` — flax variable trees / npz files -> torch state dicts
+* ``inference`` — the keypoints inference model (64-aligned resize, flip
+  and multi-scale TTA, the decode on the device) and its result objects;
+  ``data``, ``metrics``, ``utils.image`` and ``loggers`` hold the host
+  code it needs (NumPy; cv2 imported only inside the functions that use it)
 
 Entry points that create tensors or models take ``device=`` and default to
 ``"cuda"``; they raise when no card is present instead of running on the CPU.

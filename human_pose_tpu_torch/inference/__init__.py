@@ -1,0 +1,18 @@
+"""Inference: the keypoints model (flip and multi-scale TTA, 64-aligned
+resize, the AE decode on the device), its result objects and plots. Batched
+eval, serving, the SPPE and the classification models come later."""
+
+from .models import InferenceKeypointsModel, load_inference_weights
+from .results import InferenceKeypointsResult, KeypointsResult
+from .visualization import plot_connections, plot_grouped_ae_tags, plot_heatmaps, plot_top_probs
+
+__all__ = [
+    "InferenceKeypointsModel",
+    "InferenceKeypointsResult",
+    "KeypointsResult",
+    "load_inference_weights",
+    "plot_connections",
+    "plot_grouped_ae_tags",
+    "plot_heatmaps",
+    "plot_top_probs",
+]

@@ -1,0 +1,258 @@
+"""The keypoints inference model: host preprocess + device forward/decode
+(port of ``InferenceKeypointsModel`` of human_pose_tpu/inference/models.py).
+
+Counterpart of reference src/keypoints/model.py:43-111: 64-aligned resize,
+flip and multi-scale TTA, the AE decode, the inverse affine back to the raw
+image. The forward, the flip forward, the stage aggregation, the resizes and
+the decode run on the model's device (the decode's grouping and refine as
+the CUDA kernels of ``ops`` on a card); the host prepares the input and
+receives what the result object needs.
+"""
+
+from __future__ import annotations
+
+import zipfile
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..constants import PAD_PIXEL_U8
+from ..data.affine import resize_align_multi_scale
+from ..data.coco import COCO_LIMBS
+from ..data.transforms import inverse_normalize, normalize
+from ..device import resolve_device
+from ..ops.decode import decode_batch
+from ..ops.flip import flip_back, merge_flip_heatmaps
+from ..ops.heatmaps import average_stages, resize_bilinear
+from ..ops.images import prep_images
+from ..utils.weights import load_flax_npz, strip_torch_prefixes
+from .results import InferenceKeypointsResult
+
+
+def load_inference_weights(path: str | Path) -> dict[str, torch.Tensor]:
+    """A reference-layout float32 state dict, for ``load_state_dict(strict=True)``
+    of the port's model, from:
+
+    * a flax npz (flat ``params/...``/``batch_stats/...``; ``load_flax_npz``);
+    * a reference ``.pt``: a bare state dict or the trainer-state layout
+      ``{"module": {"model": state_dict, ...}, ...}``, prefixes stripped.
+
+    A native JAX trainer checkpoint (a pickle around flax msgpack) raises:
+    it loads with the port's training (ROADMAP module 10)."""
+    path = Path(path)
+    if not zipfile.is_zipfile(path):
+        raise ValueError(f"{path} is neither an npz nor a torch zip checkpoint; native JAX "
+                         "trainer checkpoints (flax msgpack) load with the port's training, "
+                         "ROADMAP module 10")
+    with zipfile.ZipFile(path) as z:
+        is_npz = all(name.endswith(".npy") for name in z.namelist())
+    if is_npz:
+        return {k: torch.from_numpy(v) for k, v in load_flax_npz(path).items()}
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and isinstance(ckpt.get("module"), dict):
+        ckpt = ckpt["module"].get("model", ckpt["module"])
+    if not isinstance(ckpt, dict):
+        raise ValueError(f"unrecognized torch checkpoint payload in {path}")
+    sd = {k: v.detach().to(torch.float32) if v.is_floating_point() else v.detach()
+          for k, v in strip_torch_prefixes(ckpt).items() if isinstance(v, torch.Tensor)}
+    if not sd:
+        raise ValueError(f"no tensors found in torch checkpoint {path}")
+    return sd
+
+
+class InferenceKeypointsModel:
+    limbs = COCO_LIMBS
+
+    def __init__(
+        self,
+        model: nn.Module,
+        det_thr: float = 0.05,
+        tag_thr: float = 0.5,
+        use_flip: bool = False,
+        input_size: int = 512,
+        max_num_people: int = 30,
+        pad_multiple: int = 64,
+        scales: tuple = (1.0,),
+        pipeline_devices: int = 0,
+        compact_inputs: bool = False,
+        dtype: torch.dtype = torch.float32,
+        device: str | torch.device = "cuda",
+    ):
+        """``model`` is the port's ``HigherHRNet`` in eval mode, already on
+        ``device`` (default ``"cuda"``: raises without a card). ``dtype``
+        bfloat16 runs the forward under ``torch.autocast`` (its outputs stay
+        float32). ``pad_multiple`` > 64 buckets the 64-aligned input shapes
+        into coarser classes by padding bottom/right; the decode masks the
+        pad region. APPROXIMATE: padding alters activations within a
+        receptive field of the pad edge; 64 = exact reference behavior.
+        ``compact_inputs`` ships uint8 pixels to the device and normalizes
+        there; bucket padding then uses ``PAD_PIXEL_U8``."""
+        if pipeline_devices:
+            raise NotImplementedError(
+                "pipeline_devices: the pipeline-parallel forward comes with the port's "
+                "parallelism, ROADMAP module 14")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        dev = resolve_device(device)
+        model_device = next(model.parameters()).device
+        if model_device.type != dev.type or (dev.index is not None and model_device != dev):
+            raise ValueError(f"model is on {model_device}, not on {dev}")
+        self.device = model_device
+        self.model = model
+        self.dtype = dtype
+        self.det_thr = det_thr
+        self.tag_thr = tag_thr
+        self.use_flip = use_flip
+        self.input_size = input_size
+        self.max_num_people = max_num_people
+        self.pad_multiple = pad_multiple
+        self.scales = tuple(scales)
+        self.compact_inputs = compact_inputs
+        self.model_input_shape: tuple | None = None
+
+    def _forward(self, x: torch.Tensor):
+        if self.dtype == torch.float32:
+            return self.model(x)
+        with torch.autocast(self.device.type, dtype=self.dtype):
+            return self.model(x)
+
+    @torch.no_grad()
+    def forward_scale(self, x: torch.Tensor, hw: tuple):
+        """One multi-scale pass on ``x`` (``[N, 3, H, W]`` on the model's
+        device, uint8 or float): forward (+flip), aggregate stages, resize to
+        the common decode size ``hw``. Returns (avg ``[N, K, h, w]``, tags
+        list of ``[N, K, h, w]``, two with flip). The flip pass rides in the
+        same forward as the plain one (eval BN: per-sample results)."""
+        x = prep_images(x)
+        n = x.shape[0]
+        if self.use_flip:
+            stages_hms, tags = self._forward(torch.cat([x, x.flip(3)]))
+            stages_hms = [merge_flip_heatmaps(h[:n], h[n:]) for h in stages_hms]
+            tags_list = [tags[:n], flip_back(tags[n:])]
+        else:
+            stages_hms, tags = self._forward(x)
+            tags_list = [tags]
+        avg = resize_bilinear(average_stages(stages_hms), *hw)
+        return avg, [resize_bilinear(t, *hw) for t in tags_list]
+
+    @torch.no_grad()
+    def _decode_aggregated(self, avg_sum, tags_list, hw, n_scales, valid_hw=None):
+        """Average the scale sum, mask the bucket pad region and decode.
+        Returns (joints, scores, valid, avg ``[N, K, h, w]``, tags
+        ``[N, K, h, w, E]``), all on the device."""
+        # a true division on every device: a Python-scalar divisor makes
+        # PyTorch's CUDA kernel multiply by its reciprocal, an ulp off the
+        # CPU's (and JAX's) quotient for 3 scales
+        avg = avg_sum / torch.tensor(n_scales, dtype=avg_sum.dtype, device=avg_sum.device)
+        if valid_hw is not None and tuple(valid_hw) != tuple(hw):
+            # shape-bucketing padding: suppress detections in the pad region
+            vh, vw = valid_hw
+            yy = torch.arange(hw[0], device=avg.device)[:, None]
+            xx = torch.arange(hw[1], device=avg.device)[None, :]
+            inside = (yy < vh) & (xx < vw)
+            avg = torch.where(inside, avg, torch.tensor(-1e4, dtype=avg.dtype, device=avg.device))
+        joints, scores, valid = decode_batch(
+            [avg], tags_list, input_hw=hw, max_num_people=self.max_num_people,
+            det_thr=self.det_thr, tag_thr=self.tag_thr,
+        )
+        return joints, scores, valid, avg, torch.stack(tags_list, dim=-1)
+
+    def prepare_input(self, image: np.ndarray, current_scale: float = 1.0, min_scale: float = 1.0):
+        """The host batch of one image at one scale: ``[1, H, W, 3]``, uint8
+        with ``compact_inputs``, normalized float32 otherwise."""
+        resized, center, scale = resize_align_multi_scale(
+            image, self.input_size, current_scale, min_scale
+        )
+        if self.compact_inputs:
+            if resized.dtype != np.uint8:
+                # prep_images passes floats through UN-normalized — fail loud
+                # instead of silently feeding raw pixels to the network
+                raise ValueError(
+                    f"compact_inputs requires uint8 images, got {resized.dtype} "
+                    "(float inputs would skip normalization entirely)"
+                )
+            x = resized[None]
+        else:
+            x = normalize(resized)[None]
+        if self.pad_multiple > 64:
+            m = self.pad_multiple
+            h, w = x.shape[1:3]
+            ph, pw = -(-h // m) * m, -(-w // m) * m
+            if self.compact_inputs:
+                # pad with the uint8 pixel closest to normalized zero so the
+                # bucket pad region matches the fp32 path's zero-padding
+                padded = np.empty((1, ph, pw, 3), np.uint8)
+                padded[:] = np.asarray(PAD_PIXEL_U8, np.uint8)
+                padded[:, :h, :w] = x
+                x = padded
+            else:
+                x = np.pad(x, ((0, 0), (0, ph - h), (0, pw - w), (0, 0)))
+        return x, center, scale
+
+    def to_device(self, xs: np.ndarray) -> torch.Tensor:
+        """A host ``[N, H, W, 3]`` batch as ``[N, 3, H, W]`` on the model's
+        device: uint8 stays uint8 (normalized on the device), floats as
+        float32 (autocast casts them for a bfloat16 forward)."""
+        x = torch.from_numpy(np.ascontiguousarray(xs)).permute(0, 3, 1, 2)
+        if x.dtype != torch.uint8:
+            x = x.to(torch.float32)
+        return x.contiguous().to(self.device)
+
+    def __call__(self, raw_image: np.ndarray, annot=None, scales=None) -> InferenceKeypointsResult:
+        """Single- or multi-scale (e.g. scales=(0.5, 1, 2)) TTA inference.
+        Heatmaps are averaged across scales at the scale-1 decode size; tag
+        maps come from scale 1 (the HigherHRNet multi-scale protocol).
+        ``scales`` defaults to the constructor's."""
+        scales = tuple(scales) if scales is not None else self.scales
+        if 1.0 not in scales:
+            # tags (and the decode geometry) always come from the scale-1 pass
+            raise ValueError(f"scales must include 1.0, got {scales}")
+        min_scale = min(scales)
+
+        # decode size / inverse-affine params come from the scale-1 pass;
+        # valid_hw is the pre-bucketing 64-aligned size (pad region masked)
+        resized1, center, scale_wh = resize_align_multi_scale(
+            raw_image, self.input_size, 1.0, min_scale
+        )
+        valid_hw = resized1.shape[:2]
+        x1, _, _ = self.prepare_input(raw_image, 1.0, min_scale)
+        h, w = x1.shape[1:3]
+        self.model_input_shape = (h, w)
+
+        avg_sum = None
+        tags_list = None
+        for s in sorted(scales, reverse=True):
+            if s == 1.0:
+                xs = x1
+            else:
+                xs, _, _ = self.prepare_input(raw_image, s, min_scale)
+            avg, tags_s = self.forward_scale(self.to_device(xs), (h, w))
+            avg_sum = avg if avg_sum is None else avg_sum + avg
+            if s == 1.0:
+                tags_list = tags_s
+        joints, scores, valid, avg, tags = self._decode_aggregated(
+            avg_sum, tags_list, (h, w), float(len(scales)), valid_hw=tuple(valid_hw)
+        )
+        vh, vw = valid_hw
+        # to the host: the first image, cropped to the valid region, channel-last
+        return InferenceKeypointsResult.from_decoded(
+            raw_image=raw_image,
+            annot=annot,
+            model_input_image=(
+                np.asarray(x1[0, :vh, :vw])  # uint8 compact input, displayable as-is
+                if x1.dtype == np.uint8
+                else inverse_normalize(np.asarray(x1[0, :vh, :vw], np.float32))
+            ),
+            avg_heatmaps=avg[0, :, :vh, :vw].permute(1, 2, 0).cpu().numpy(),
+            tags_heatmaps=tags[0, :, :vh, :vw].permute(1, 2, 0, 3).cpu().numpy(),
+            joints=joints[0].cpu().numpy(),
+            obj_scores=scores[0].cpu().numpy(),
+            valid=valid[0].cpu().numpy(),
+            center=center,
+            scale=scale_wh,
+            det_thr=self.det_thr,
+            tag_thr=self.tag_thr,
+            limbs=self.limbs,
+        )

@@ -9,8 +9,13 @@ import torch.nn.functional as F
 
 def resize_bilinear(hms: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Bilinear resize of ``[N, C, H, W]`` maps to ``(h, w)``, half-pixel
-    centers (``align_corners=False``, the reference's interpolate)."""
-    return F.interpolate(hms, size=(h, w), mode="bilinear", align_corners=False)
+    centers (``align_corners=False``, the reference's interpolate). Where
+    the target is smaller than the source in either dim the filter is
+    widened by the scale (``antialias=True``), as ``jax.image.resize``'s
+    "linear" method does; upsamples and identities take the plain call."""
+    downsample = h < hms.shape[2] or w < hms.shape[3]
+    return F.interpolate(hms, size=(h, w), mode="bilinear", align_corners=False,
+                         antialias=downsample)
 
 
 def match_heatmaps_size(heatmaps: list) -> list:

@@ -600,3 +600,125 @@ def test_decode_fused_card_equals_cpu(dev):
     assert torch.equal(gv.cpu(), cv) and int(cv.sum()) >= 2 * 8
     assert torch.allclose(gj.cpu(), cj, atol=1e-6, rtol=0)
     assert torch.allclose(gs.cpu(), cs, atol=1e-6, rtol=0)
+
+
+# -- the inference model's path: E=2 (flip) at a non-square decode size ------
+
+def _scene_512x704(seed, e=2, n_persons=12):
+    """A full-resolution decode scene at 512x704 with E tag maps: persons
+    with one joint peak each per map and their tags around it."""
+    rng = np.random.RandomState(seed)
+    k, h, w = 17, 512, 704
+    hm = rng.rand(1, k, h, w).astype(np.float32) * 0.02
+    tg = rng.randn(1, k, e, h, w).astype(np.float32) * 0.05
+    for person in range(n_persons):
+        for j in range(k):
+            y, x = rng.randint(2, h - 2), rng.randint(2, w - 2)
+            hm[0, j, y, x] = 0.5 + 0.5 * rng.rand()
+            tg[0, j, :, y - 2:y + 3, x - 2:x + 3] = (3.0 * person + np.arange(e)[:, None, None]
+                                                     + rng.randn(e, 5, 5) * 0.01)
+    return torch.from_numpy(hm), torch.from_numpy(tg)
+
+
+def test_refine_kernel_e2_at_512x704(dev):
+    """The dense refine at the flip path's E=2 on a 512x704 decode."""
+    hm, tags, prev = _refine_inputs(20, 1, 17, 512 * 704, 2, 30)
+    counts = torch.tensor([30], dtype=torch.int32)
+    want = refine_argmax_batch_plain(hm, tags, prev, counts)
+    assert torch.equal(_refine_on_card(dev, hm, tags, prev, counts), want)
+
+
+def test_decode_e2_at_512x704_card_equals_cpu(dev):
+    """The inference model's decode (one full-resolution stage, two tag maps)
+    at 512x704: card == CPU path, and the grouping kernel == its plain
+    version on the decode's own candidates."""
+    from human_pose_tpu_torch.ops.grouping import _candidates, joints_order_for, top_k
+
+    hm, tg = _scene_512x704(21)
+    tags_list = [tg[:, :, 0], tg[:, :, 1]]
+    cj, cs, cv = decode_batch([hm], tags_list, (512, 704), det_thr=0.05, tag_thr=0.5)
+    gj, gs, gv = decode_batch([hm.to(dev)], [t.to(dev) for t in tags_list], (512, 704),
+                              det_thr=0.05, tag_thr=0.5)
+    assert torch.equal(gv.cpu(), cv) and int(cv.sum()) >= 12
+    assert torch.equal(gj.cpu()[..., :3], cj[..., :3])
+    order = joints_order_for(17)
+    cand = _candidates(*top_k(hm.to(dev), tg.to(dev), 30))[:, list(order)].contiguous()
+    assert cand.shape == (1, 17, 30, 5)
+    want_j, want_c = match_by_tag_batched_plain(cand.cpu(), 0.05, 0.5, order, 30)
+    got_j, got_c = match_by_tag_batched(cand, 0.05, 0.5, order, 30)
+    assert torch.equal(got_c.cpu(), want_c) and torch.equal(got_j.cpu(), want_j)
+
+
+@pytest.mark.parametrize("hw", [(32, 44), (16, 22), (64, 44), (256, 352)])
+def test_resize_bilinear_card_equals_cpu(dev, hw):
+    """The repaired resize (antialiased when it downsamples) on the card vs
+    the CPU, from a 64x88 map, within 1e-6."""
+    from human_pose_tpu_torch.ops import resize_bilinear
+
+    x = torch.from_numpy(np.random.RandomState(22).randn(2, 17, 64, 88).astype(np.float32))
+    err = (resize_bilinear(x.to(dev), *hw).cpu() - resize_bilinear(x, *hw)).abs().max()
+    assert float(err) <= 1e-6
+
+
+def _paint_fixture_image(seed, size=96):
+    """uint8 HWC: two persons in tinted bands, 17 joint-coloured discs each,
+    like the AP fixture's corpus (tests/ap_fixture.py)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    img = (rng.rand(size, size, 3) * 25).astype(np.float32)
+    colors = rng.randint(60, 256, (9, 3))
+    for band, tint in enumerate(((20, 50, 20), (50, 20, 50))):
+        y0 = band * size // 2
+        img[y0:y0 + size // 2] += tint
+        for k in range(17):
+            cx, cy = rng.randint(7, size - 7), y0 + rng.randint(7, size // 2 - 7)
+            img[(xx - cx) ** 2 + (yy - cy) ** 2 <= 49] = colors[0 if k == 0 else 1 + (k - 1) // 2]
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("config", [{}, {"use_flip": True, "scales": (0.5, 1.0)},
+                                    {"use_flip": True, "compact_inputs": True, "pad_multiple": 128}])
+def test_fixture_inference_card_equals_cpu(dev, config):
+    """The trained C=8 fixture through InferenceKeypointsModel on the card and
+    on the CPU: the same decisions (person counts, median joint difference
+    < 0.5 px, sorted person scores within 0.05)."""
+    from pathlib import Path
+
+    from human_pose_tpu_torch.inference import InferenceKeypointsModel, load_inference_weights
+    from human_pose_tpu_torch.models import HigherHRNet
+
+    sd = load_inference_weights(Path(__file__).parent / "data" / "ap_fixture_weights.npz")
+    kw = dict(det_thr=0.25, tag_thr=0.4, input_size=64, max_num_people=10, **config)
+    runs = []
+    for device in ("cpu", dev):
+        net = HigherHRNet(num_kpts=17, C=8, device=device).eval()
+        net.load_state_dict(sd)
+        im = InferenceKeypointsModel(net, device=device, **kw)
+        runs.append([im(_paint_fixture_image(seed)) for seed in (0, 1)])
+    for want, got in zip(*runs):
+        assert len(got.kpts_coords) == len(want.kpts_coords) >= 1
+        assert np.median(np.abs(got.kpts_coords - want.kpts_coords)) < 0.5
+        assert np.abs(np.sort(got.obj_scores) - np.sort(want.obj_scores)).max() < 0.05
+
+
+@pytest.mark.parametrize("n_scales", [1.0, 2.0, 3.0])
+def test_scale_average_card_equals_cpu(dev, n_scales):
+    """``_decode_aggregated``'s scale average is the same true division on
+    the card as on the CPU (a Python-scalar divisor would make the CUDA
+    kernel multiply by the reciprocal, an ulp off for 3 scales)."""
+    from human_pose_tpu_torch.inference import InferenceKeypointsModel
+    from human_pose_tpu_torch.models import HigherHRNet
+
+    rng = np.random.RandomState(23)
+    avg_sum = torch.from_numpy((rng.rand(1, 17, 64, 96) * 6000).astype(np.float32))
+    tags = [torch.from_numpy(rng.randn(1, 17, 64, 96).astype(np.float32))]
+    outs = []
+    for device in ("cpu", dev):
+        net = HigherHRNet(num_kpts=17, C=8, num_blocks_per_stage=(1, 1, 1, 1), num_units=1,
+                         num_deconv_resid_blocks=1, device=device).eval()
+        im = InferenceKeypointsModel(net, input_size=64, device=device)
+        outs.append(im._decode_aggregated(avg_sum.to(device), [t.to(device) for t in tags],
+                                          (64, 96), n_scales, (64, 80)))
+    (cj, _, cv, cavg, _), (gj, _, gv, gavg, _) = outs
+    assert torch.equal(gavg.cpu(), cavg)
+    assert torch.equal(gv.cpu(), cv) and torch.equal(gj.cpu()[..., :3], cj[..., :3])

@@ -40,12 +40,15 @@ def _run(code: str, cwd: Path) -> subprocess.CompletedProcess:
 
 def test_package_imports_with_jax_blocked():
     """Every module of the port (and chip_smoke) imports with JAX, flax and
-    the JAX package made unimportable, and without CUDA."""
+    the JAX package made unimportable, and without CUDA: the subpackages of
+    the inference path too."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'human_pose_tpu'): sys.modules[m] = None\n"
         "import human_pose_tpu_torch, human_pose_tpu_torch.models, human_pose_tpu_torch.ops\n"
         "import human_pose_tpu_torch.utils, human_pose_tpu_torch.ops._build, chip_smoke\n"
+        "import human_pose_tpu_torch.inference, human_pose_tpu_torch.data\n"
+        "import human_pose_tpu_torch.metrics, human_pose_tpu_torch.loggers\n"
         "print('ok')\n"
     )
     res = _run(code, ROOT)
