@@ -6,6 +6,7 @@
     python3 chip_smoke.py --aggregate-only     # the fused aggregate alone, see the end
     python3 chip_smoke.py --block-only         # the fused BasicBlock alone, see the end
     python3 chip_smoke.py --infer-only         # the inference model's phase alone, see the end
+    python3 chip_smoke.py --eval-only          # the COCO evaluation phase alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -55,6 +56,16 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    idle share and of one fused and one dense decode alone, fused vs dense
    decode, each kernel vs its plain version, its bound and, where one
    exists, a library call
+8. COCO evaluation (``eval_phase``): a synthesized val directory of 32
+   seeded jpgs in COCO's four commonest raw sizes, W32 from
+   ``experiments/keypoints/higher_hrnet_32.yaml`` through the port's config,
+   flip on: the batched evaluator at batch 8 and 16 with the counters zeroed
+   and one launch of the dense refine and of the grouping required a
+   dispatched batch; one batch's decode with a valid size an image == each
+   image's decode alone, bit for bit; the batch-8 float32 forward == per
+   image (rel 1e-3); ``bin.eval_keypoints.main`` serial and batched writes
+   its three files; img/s serial and batched in float32 and bfloat16, the
+   batched path's device busy and idle share, its host syncs by line
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
@@ -92,7 +103,7 @@ SM; it prints one JSON object last (no ``ok`` line).
 
 ``--infer-only`` builds the dense refine and the grouping and runs phase 6
 alone on the W32 model; it prints the phase's record as one JSON object
-last (no ``ok`` line).
+last (no ``ok`` line). ``--eval-only`` does the same for phase 8.
 """
 
 from __future__ import annotations
@@ -117,6 +128,8 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12
 PEAK_TF32_S = 495e12
+# HigherHRNet-W32's parameter count (the published model)
+W32_PARAMS = 28_645_331
 # HRNet-W32 branch shapes of a 512x512 input: (channels, height = width)
 W32_BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))
 
@@ -1059,7 +1072,8 @@ def dense_stage_inputs(kpts, tags, dev):
 def make_counted(counters: dict):
     """``counted(fn, what, want)``: run ``fn`` with every launch counter of
     ``counters`` zeroed just before; require exactly the launches of
-    ``want`` (and none of any other kernel). Returns (fn's result, counts)."""
+    ``want`` (and none of any other kernel); ``want`` may be a function of
+    fn's result. Returns (fn's result, counts)."""
     import torch
 
     def counted(fn, what, want):
@@ -1067,6 +1081,7 @@ def make_counted(counters: dict):
             wrapper.launches = 0
         out = fn()
         torch.cuda.synchronize()
+        want = want(out) if callable(want) else want
         counts = {key: wrapper.launches for key, wrapper in counters.items()}
         log(f"{what} launches: {counts}")
         if counts != {key: want.get(key, 0) for key in counters}:
@@ -1248,6 +1263,274 @@ def inference_phase(dev, model, rng, counted, smi: str) -> dict:
     log(f"inference (c) __call__: {len(dets)} COCO detections, model input {im.model_input_shape}, "
         f"{out['call_c']['host_wall_ms']:.3f} ms host wall an image (cv2 warp, copies, sync)  [{smi}]")
     return out
+
+
+# phase 8, COCO evaluation: a synthesized val directory in COCO's commonest
+# raw sizes (h, w), 2-5 persons an image, W32 from the repo's yaml
+EVAL_YAML = "experiments/keypoints/higher_hrnet_32.yaml"
+EVAL_N_IMAGES = 32
+EVAL_RAW_HW = ((480, 640), (640, 480), (427, 640), (640, 427))
+EVAL_BATCH_SIZES = (8, 16)
+EVAL_OUT_FILES = ["coco_output.txt", "config.yaml", "val2017_results.json"]
+
+
+def make_eval_corpus(root: Path, rng) -> dict:
+    """A COCO val2017 directory under ``root``: ``EVAL_N_IMAGES`` seeded jpgs
+    of the sizes ``EVAL_RAW_HW`` (a smooth random background, 2-5 persons of
+    17 keypoints drawn as discs, about one keypoint in eight not visible),
+    ``person_keypoints_val2017.json``, pre-baked with the port's
+    ``prebake_annotations``. Returns the counts of images, of persons and
+    of images of each raw size."""
+    import cv2
+
+    from human_pose_tpu_torch.data import prebake_annotations
+
+    (root / "images" / "val2017").mkdir(parents=True)
+    (root / "annotations").mkdir()
+    images, annotations, sizes = [], [], {}
+    for i in range(EVAL_N_IMAGES):
+        h, w = EVAL_RAW_HW[int(rng.integers(len(EVAL_RAW_HW)))]
+        sizes[f"{h}x{w}"] = sizes.get(f"{h}x{w}", 0) + 1
+        small = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+        img = cv2.resize(small, (w, h), interpolation=cv2.INTER_LINEAR)
+        image_id = i + 1
+        for _ in range(int(rng.integers(2, 6))):
+            s = int(rng.integers(min(h, w) // 10, min(h, w) // 4))
+            cx, cy = int(rng.integers(s, w - s)), int(rng.integers(s, h - s))
+            xy = np.stack([cx + rng.integers(-s, s + 1, K), cy + rng.integers(-s, s + 1, K)], 1)
+            vis = rng.random(K) > 0.125
+            kpts = np.zeros((K, 3), np.int64)
+            kpts[vis, :2], kpts[vis, 2] = xy[vis], 2
+            for x, y in xy[vis]:
+                cv2.circle(img, (int(x), int(y)), 5, tuple(int(c) for c in rng.integers(0, 256, 3)), -1)
+            x0, y0 = xy[vis].min(0)
+            x1, y1 = xy[vis].max(0)
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": image_id, "category_id": 1,
+                "keypoints": kpts.ravel().tolist(), "num_keypoints": int(vis.sum()), "iscrowd": 0,
+                "area": float((x1 - x0 + 1) * (y1 - y0 + 1)),
+                "bbox": [float(x0), float(y0), float(x1 - x0 + 1), float(y1 - y0 + 1)],
+                "segmentation": [[int(x0), int(y0), int(x1), int(y0), int(x1), int(y1), int(x0), int(y1)]]})
+        name = f"{image_id:012d}.jpg"
+        cv2.imwrite(str(root / "images" / "val2017" / name), img)
+        images.append({"id": image_id, "file_name": name, "height": h, "width": w})
+    (root / "annotations" / "person_keypoints_val2017.json").write_text(
+        json.dumps({"images": images, "annotations": annotations}))
+    prebake_annotations(str(root), "val2017")
+    return {"images": EVAL_N_IMAGES, "persons": len(annotations), "raw_hw": sizes}
+
+
+def eval_phase(dev, counted, smi: str) -> dict:
+    """Phase 8: COCO evaluation through the port's entry points on a
+    synthesized val directory (``make_eval_corpus``), HigherHRNet-W32 at its
+    full width from ``EVAL_YAML`` (seeded random weights: ``ckpt_path``
+    null), flip on, input 512. Checks, any failure raises: (1) the batched
+    evaluator at batch 8 and 16 launches the dense refine and the grouping
+    once a dispatched batch; (2) the batched decode of one batch's maps with
+    a different valid size an image equals each image's decode alone, bit
+    for bit; (3) the batch-N float32 forward equals the per-image forward
+    within rel 1e-3; (4) ``bin.eval_keypoints.main``, serial and with
+    ``--batch_size=8``, writes its three files with the AP table. Measures
+    img/s of the serial and the batched evaluator (batch 8, 16; float32,
+    bfloat16), the batched path's device busy and idle share (profiler),
+    the host syncs inside it (``torch.cuda.set_sync_debug_mode``), the
+    host's jpeg read and ``prepare_input`` an image, and the two kernels'
+    times on its inputs. Returns the phase's record."""
+    import collections
+    import contextlib
+    import tempfile
+    import warnings
+
+    import torch
+
+    from human_pose_tpu_torch.bin import eval_keypoints
+    from human_pose_tpu_torch.configs import KeypointsConfig
+    from human_pose_tpu_torch.data import CocoKeypointsDataset
+    from human_pose_tpu_torch.inference import (
+        BatchedKeypointsEvaluator, evaluate_dataset_batched, image_id_from_path,
+    )
+    from human_pose_tpu_torch.ops import cuda_decode, cuda_match
+    from human_pose_tpu_torch.utils import load_yaml, save_yaml
+
+    rng = np.random.default_rng(SEED + 8)
+    out = {"card": smi, "batch_sizes": EVAL_BATCH_SIZES}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out["corpus"] = make_eval_corpus(tmp / "coco", rng)
+        cfg_dict = load_yaml(Path(__file__).resolve().parent / EVAL_YAML)
+        cfg_dict["dataloader"]["val_ds"]["root"] = str(tmp / "coco")
+        cfg_dict["inference"].update(ckpt_path=None, use_flip=True, input_size=SIZE)
+        yaml_path = tmp / "eval.yaml"
+        save_yaml(cfg_dict, yaml_path)
+        # the yaml's accelerator "tpu" means a bfloat16 forward (the JAX rule);
+        # any other accelerator but "cpu" is float32 on the card
+        models = {}
+        for dtype, argv in (("float32", ["--trainer.accelerator=gpu"]), ("bfloat16", [])):
+            cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(str(yaml_path), argv))
+            models[dtype] = cfg.create_inference_model()
+            if str(models[dtype].dtype) != f"torch.{dtype}" or models[dtype].device != dev:
+                raise AssertionError(f"eval: {dtype} model is {models[dtype].dtype} on "
+                                     f"{models[dtype].device}")
+        im = models["float32"]
+        n_params = sum(p.numel() for p in im.model.parameters())
+        if n_params != W32_PARAMS:
+            raise AssertionError(f"eval: W32 from {EVAL_YAML} has {n_params} parameters")
+        ds = CocoKeypointsDataset(str(tmp / "coco"), "val2017")
+        data = [(ds.load_image(i), image_id_from_path(ds.images_filepaths[i], i), ds.load_annot(i))
+                for i in range(len(ds))]
+        log(f"eval corpus: {out['corpus']}; W32 {n_params} parameters, flip, input {SIZE}")
+
+        def run(model, bs):
+            """The batched evaluator on the images in memory: (it, detections)."""
+            ev = BatchedKeypointsEvaluator(model, batch_size=bs)
+            for img, image_id, annot in data:
+                ev.add(img, image_id, annot)
+            return ev, ev.finish()[0]
+
+        # (1) one dense refine and one grouping a dispatched batch
+        out["launches"], out["batches"] = {}, {}
+        for bs in EVAL_BATCH_SIZES:
+            (ev, dets), launches = counted(
+                lambda: run(im, bs), f"eval batched bs{bs} float32",
+                lambda r: {"match_by_tag": r[0].n_batches, "refine_argmax": r[0].n_batches})
+            out["launches"][bs], out["batches"][bs] = launches, ev.n_batches
+            out["buckets"] = sorted(ev.buckets)
+            if not dets or not all(np.isfinite(d["keypoints"]).all() for d in dets):
+                raise AssertionError(f"eval bs{bs}: {len(dets)} detections, or non-finite ones")
+            log(f"eval batched bs{bs}: {ev.n_batches} batches over {len(ev.buckets)} buckets "
+                f"{out['buckets']}, {len(dets)} detections; one launch of each kernel a batch")
+
+        # (2) per-image decode and (3) the batch-N forward, on the largest bucket
+        probe = BatchedKeypointsEvaluator(im, batch_size=8)
+        by_key = collections.defaultdict(list)
+        for img, _, _ in data:
+            by_key[probe._bucket_key(img.shape[:2])].append(img)
+        imgs = max(by_key.values(), key=len)[:8]
+        xs = np.stack([im.prepare_input(img)[0][0] for img in imgs])
+        hw = xs.shape[1:3]
+        valid_hw = [(hw[0] - hw[0] // 8 * (i % 3), hw[1] - hw[1] // 8 * (i // 3))
+                    for i in range(len(imgs))]
+        x = im.to_device(xs)
+        avg, tags = im.forward_scale(x, hw)
+        batched, _ = counted(
+            lambda: im.decode_masked(avg, tags, hw, 1.0,
+                                     torch.tensor(valid_hw, dtype=torch.int32, device=dev)),
+            f"eval: decode of one batch ({len(imgs)} at {hw}, E=2) with a valid size an image",
+            {"match_by_tag": 1, "refine_argmax": 1})
+        fwd_rel = fwd_abs = 0.0
+        for i, vhw in enumerate(valid_hw):
+            alone = im.decode_masked(avg[i:i + 1], [t[i:i + 1] for t in tags], hw, 1.0, vhw)
+            if not all(torch.equal(got[i:i + 1], want) for got, want in zip(batched, alone)):
+                raise AssertionError(f"eval: image {i} (valid {vhw}) decodes differently in the batch")
+            a1, t1 = im.forward_scale(x[i:i + 1], hw)
+            for got, want in ((avg[i:i + 1], a1), *((t[i:i + 1], u) for t, u in zip(tags, t1))):
+                diff = float((got - want).abs().max())
+                fwd_abs = max(fwd_abs, diff)
+                fwd_rel = max(fwd_rel, diff / max(float(want.abs().max()), 1e-3))
+        if fwd_rel > 1e-3:
+            raise AssertionError(f"eval: batch-{len(imgs)} float32 forward vs per image: rel {fwd_rel}")
+        out["decode_per_image_exact"] = {"batch": len(imgs), "decode_hw": hw, "valid_hw": valid_hw,
+                                         "persons": batched[2].sum(1).tolist()}
+        out["forward_batch_vs_single"] = {"max_rel_err": fwd_rel, "max_abs_err": fwd_abs}
+        log(f"eval: batched decode == per-image decode bit for bit ({len(imgs)} images at {hw}, "
+            f"valid sizes {valid_hw}); batch-{len(imgs)} fp32 forward == per image within rel "
+            f"{fwd_rel:.3g} (largest difference {fwd_abs:.3g})")
+
+        # the kernels on the batched path's inputs (its last batch at bs 8)
+        seen = record_kernel_inputs(lambda: run(im, 8))
+        hm, tg, prev, cnt = seen["refine_argmax"]
+        cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
+        out["kernels"] = {
+            "refine_shape": f"B{hm.shape[0]} K{K} HW{hm.shape[2]} E{tg.shape[2]} P{prev.shape[1]}",
+            "refine_active_persons": int(cnt.sum()),
+            "refine_ms": cuda_ms(lambda: cuda_decode.refine_argmax_batch(hm, tg, prev, cnt), iters=20),
+            "refine_bound_ms": refine_bound(hm, tg, prev, cnt)[0],
+            "match_shape": f"B{cand.shape[0]} K{K} M{cand.shape[2]} E{cand.shape[3] - 3} P{persons}",
+            "match_ms": cuda_ms(lambda: cuda_match.match_by_tag_batched(
+                cand, det_thr, tag_thr, order, persons), iters=20),
+            "match_bound_ms": match_bound(cand, persons)[0]}
+        log("eval kernels (bs8 inputs): " + ", ".join(f"{k_} {v}" for k_, v in out["kernels"].items()))
+
+        # where the batched path waits on the host
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run(im, 8)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                                    if "synchroniz" in str(w.message))
+        out["host_syncs_bs8"] = dict(syncs.most_common())
+        log(f"eval bs8: host syncs by source line (set_sync_debug_mode): {out['host_syncs_bs8']}")
+
+        # the host's own work an image: the jpeg read, prepare_input (cv2's
+        # warp, normalize), the result object and its OKS and COCO export
+        t_read = host_ms(lambda: [ds.load_image(i) for i in range(len(ds))]) / len(ds)
+        t_prep = host_ms(lambda: [im.prepare_input(img) for img, _, _ in data]) / len(data)
+        out["host_ms_an_image"] = {"load_image": t_read, "prepare_input": t_prep}
+        log(f"eval host ms an image: load_image (jpeg) {t_read:.2f}, prepare_input (cv2 warp, "
+            f"normalize) {t_prep:.2f}  [{smi}]")
+
+        # img/s: serial and batched, float32 and bfloat16, host wall with the
+        # images read from disk, after one untimed run each
+        out["img_per_s"], out["busy_ms"], out["wall_ms"] = {}, {}, {}
+        n = len(ds)
+        for dtype, model in models.items():
+            eval_keypoints.evaluate_dataset(model, ds, limit=4)
+            torch.cuda.synchronize()
+            out["img_per_s"][f"serial_{dtype}"] = n / host_ms(
+                lambda: (eval_keypoints.evaluate_dataset(model, ds), torch.cuda.synchronize())) * 1e3
+            for bs in EVAL_BATCH_SIZES:
+                evaluate_dataset_batched(model, ds, bs, progress=False)
+                out["img_per_s"][f"batched_bs{bs}_{dtype}"] = n / host_ms(
+                    lambda: evaluate_dataset_batched(model, ds, bs, progress=False), iters=2) * 1e3
+            wall = host_ms(lambda: run(model, 8), iters=2)
+            busy, groups = profile_breakdown(lambda: run(model, 8))
+            out["wall_ms"][dtype], out["busy_ms"][dtype] = wall, busy
+            out[f"busy_groups_ms_{dtype}"] = groups
+            log(f"eval {dtype}: img/s serial {out['img_per_s'][f'serial_{dtype}']:.2f}, batched "
+                + ", ".join(f"bs{bs} {out['img_per_s'][f'batched_bs{bs}_{dtype}']:.2f}"
+                            for bs in EVAL_BATCH_SIZES)
+                + f"; batched bs8 from memory: {wall:.1f} ms wall, device busy {busy} ms (idle share "
+                f"{'not measured' if busy is None else f'{max(0.0, 1 - busy / wall):.3f}'})  [{smi}]")
+
+        # (4) the CLI, serial and batched, in working directories of its own
+        cudnn = torch.backends.cudnn
+        saved = (cudnn.benchmark, cudnn.deterministic, cudnn.enabled)
+        out["cli"] = {}
+        try:
+            for mode, extra in (("serial", []), ("batched", ["--batch_size=8"])):
+                work = tmp / f"cli_{mode}"
+                work.mkdir()
+                t0 = time.perf_counter()
+                with contextlib.chdir(work):
+                    out_dir = work / eval_keypoints.main([f"--config={yaml_path}", *extra])
+                secs = time.perf_counter() - t0
+                files = sorted(p.name for p in out_dir.iterdir())
+                summary = (out_dir / "coco_output.txt").read_text()
+                dets = json.loads((out_dir / "val2017_results.json").read_text())
+                if files != EVAL_OUT_FILES or "Average Precision" not in summary or not dets:
+                    raise AssertionError(f"eval CLI {mode}: files {files}, {len(dets)} detections")
+                out["cli"][mode] = {"seconds": secs, "files": files, "detections": len(dets),
+                                    "ap_line": summary.splitlines()[0]}
+                log(f"eval CLI {mode}: {files}, {len(dets)} detections, {secs:.1f}s with the model's "
+                    f"build; {summary.splitlines()[0]}")
+        finally:
+            cudnn.benchmark, cudnn.deterministic, cudnn.enabled = saved
+    return out
+
+
+def eval_only(dev, smi: str) -> int:
+    """Phase 8 alone: build the dense refine and the grouping, then the COCO
+    evaluation phase. Prints the phase's record as one JSON object last."""
+    from human_pose_tpu_torch.ops import _build, cuda_decode, cuda_match
+
+    log(f"build: per kernel {_build.build_kernels(('refine_argmax', 'match_by_tag'))}")
+    counted = make_counted({"match_by_tag": cuda_match.match_by_tag_batched,
+                            "refine_argmax": cuda_decode.refine_argmax_batch})
+    print(json.dumps({"eval": eval_phase(dev, counted, smi)}), flush=True)
+    return 0
 
 
 def refine_only(dev, rng, smi: str) -> int:
@@ -1524,6 +1807,8 @@ def main() -> int:
                         help="build, check and time the fused BasicBlock kernel alone")
     parser.add_argument("--infer-only", action="store_true",
                         help="build the decode's kernels and run the inference model's phase alone")
+    parser.add_argument("--eval-only", action="store_true",
+                        help="build the decode's kernels and run the COCO evaluation phase alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1567,6 +1852,8 @@ def main() -> int:
         return block_only(dev, gen, smi)
     if args.infer_only:
         return infer_only(dev, rng, smi)
+    if args.eval_only:
+        return eval_only(dev, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -1789,6 +2076,9 @@ def main() -> int:
     log(f"profile of one dense decode of the forward's outputs: device busy {dense_busy_ms} ms of "
         f"{dec_ms:.3f} ms between CUDA events (the rest is the host: launches and syncs)")
 
+    # 8. COCO evaluation
+    eval_rec = eval_phase(dev, counted, smi)
+
     # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
     dense_in = record_kernel_inputs(decode_dense)
@@ -1796,7 +2086,8 @@ def main() -> int:
     paths = {"main": launches, "dense_scene": launches_dense, "fused": launches_fused,
              "fused_scene": launches_fused_scene, "per_image": launches_per_image,
              "w32_blocks": launches_blocks,
-             **{f"infer_{key}": rec["launches"] for key, rec in infer_rec["configs"].items()}}
+             **{f"infer_{key}": rec["launches"] for key, rec in infer_rec["configs"].items()},
+             **{f"eval_bs{bs}": c for bs, c in eval_rec["launches"].items()}}
 
     def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
         return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
@@ -1820,7 +2111,8 @@ def main() -> int:
         sass=refine_sass,
         ms_infer_e2={key: r["refine_ms"] for key, r in infer_rec["e2_kernels"].items()},
         infer_e2={key: {k_: v for k_, v in r.items() if k_.startswith("refine")}
-                  for key, r in infer_rec["e2_kernels"].items()}))
+                  for key, r in infer_rec["e2_kernels"].items()},
+        eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("refine")}))
     cand, _, _, order, persons = main_in["match_by_tag"]
     kernels.append(row(
         "match_by_tag", "main", "exact joints and count",
@@ -1834,7 +2126,8 @@ def main() -> int:
         valid_rows=int((cand[..., 2] > DET_THR).sum()),
         ms_infer_e2={key: r["match_ms"] for key, r in infer_rec["e2_kernels"].items()},
         infer_e2={key: {k_: v for k_, v in r.items() if k_.startswith("match")}
-                  for key, r in infer_rec["e2_kernels"].items()}))
+                  for key, r in infer_rec["e2_kernels"].items()},
+        eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("match")}))
     kernels.append(row(
         "match_by_tag_per_image", "per_image", "exact joints and count; equal to match_by_tag",
         cuda_ms(lambda: cuda_match.match_by_tag_per_image(cand_s, DET_THR, TAG_THR, order_s, persons_s),
@@ -1905,6 +2198,7 @@ def main() -> int:
                                                  "joints_differ": joints_differ},
                               "card": smi}}), flush=True)
     print(json.dumps({"inference": infer_rec}), flush=True)
+    print(json.dumps({"eval": eval_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -14,6 +14,9 @@ so each counterpart is easy to find:
   and multi-scale TTA, the decode on the device) and its result objects;
   ``data``, ``metrics``, ``utils.image`` and ``loggers`` hold the host
   code it needs (NumPy; cv2 imported only inside the functions that use it)
+* ``inference.batched_eval`` — shape-bucketed batched COCO evaluation
+* ``configs`` — the yaml + ``--a.b.c=v`` keypoints config and its factories
+* ``bin`` — the ``eval_keypoints`` and ``inference_keypoints`` CLIs
 
 Entry points that create tensors or models take ``device=`` and default to
 ``"cuda"``; they raise when no card is present instead of running on the CPU.

@@ -1,0 +1,38 @@
+"""Configs: the yaml + ``--a.b.c=v`` plumbing and the keypoints config
+(port of human_pose_tpu/configs). ``ClassificationConfig`` comes with the
+port's classification, ROADMAP module 12."""
+
+from .base import (
+    BaseConfig,
+    DataloaderConfig,
+    DatasetConfig,
+    InferenceConfig,
+    ModuleConfig,
+    NetConfig,
+    SetupConfig,
+    TrainerConfig,
+    TransformConfig,
+)
+from .cli import parse_args_for_config, parse_cli_value, update_config, update_dict
+from .keypoints import KeypointsConfig, KeypointsTransformConfig
+from .structured import structure, unstructure
+
+__all__ = [
+    "BaseConfig",
+    "SetupConfig",
+    "TrainerConfig",
+    "DataloaderConfig",
+    "DatasetConfig",
+    "TransformConfig",
+    "ModuleConfig",
+    "NetConfig",
+    "InferenceConfig",
+    "KeypointsConfig",
+    "KeypointsTransformConfig",
+    "structure",
+    "unstructure",
+    "parse_cli_value",
+    "update_dict",
+    "parse_args_for_config",
+    "update_config",
+]

@@ -62,6 +62,21 @@ def load_inference_weights(path: str | Path) -> dict[str, torch.Tensor]:
     return sd
 
 
+def mask_pad_region(avg: torch.Tensor, valid_hw) -> torch.Tensor:
+    """``avg [N, K, H, W]`` with -1e4 outside the valid region, which is
+    ``(h, w)`` for every image or an int ``[N, 2]`` tensor of per-image
+    ``(h, w)`` on ``avg``'s device: shape-bucketing padding gets no
+    detections."""
+    if torch.is_tensor(valid_hw):
+        vh, vw = valid_hw[:, 0].view(-1, 1, 1, 1), valid_hw[:, 1].view(-1, 1, 1, 1)
+    else:
+        vh, vw = valid_hw
+    yy = torch.arange(avg.shape[2], device=avg.device)[:, None]
+    xx = torch.arange(avg.shape[3], device=avg.device)[None, :]
+    return torch.where((yy < vh) & (xx < vw), avg,
+                       torch.tensor(-1e4, dtype=avg.dtype, device=avg.device))
+
+
 class InferenceKeypointsModel:
     limbs = COCO_LIMBS
 
@@ -109,6 +124,7 @@ class InferenceKeypointsModel:
         self.max_num_people = max_num_people
         self.pad_multiple = pad_multiple
         self.scales = tuple(scales)
+        self.pipeline_devices = pipeline_devices
         self.compact_inputs = compact_inputs
         self.model_input_shape: tuple | None = None
 
@@ -138,26 +154,30 @@ class InferenceKeypointsModel:
         return avg, [resize_bilinear(t, *hw) for t in tags_list]
 
     @torch.no_grad()
-    def _decode_aggregated(self, avg_sum, tags_list, hw, n_scales, valid_hw=None):
+    def decode_masked(self, avg_sum, tags_list, hw, n_scales, valid_hw=None):
         """Average the scale sum, mask the bucket pad region and decode.
-        Returns (joints, scores, valid, avg ``[N, K, h, w]``, tags
-        ``[N, K, h, w, E]``), all on the device."""
+        ``valid_hw``: None (no pad region), ``(h, w)`` for every image, or
+        an int ``[N, 2]`` tensor on the device, one valid size per image
+        (the batched evaluator's, whose buckets hold several exact sizes).
+        Returns (joints, scores, valid, avg ``[N, K, h, w]``), all on the
+        device."""
         # a true division on every device: a Python-scalar divisor makes
         # PyTorch's CUDA kernel multiply by its reciprocal, an ulp off the
         # CPU's (and JAX's) quotient for 3 scales
         avg = avg_sum / torch.tensor(n_scales, dtype=avg_sum.dtype, device=avg_sum.device)
-        if valid_hw is not None and tuple(valid_hw) != tuple(hw):
-            # shape-bucketing padding: suppress detections in the pad region
-            vh, vw = valid_hw
-            yy = torch.arange(hw[0], device=avg.device)[:, None]
-            xx = torch.arange(hw[1], device=avg.device)[None, :]
-            inside = (yy < vh) & (xx < vw)
-            avg = torch.where(inside, avg, torch.tensor(-1e4, dtype=avg.dtype, device=avg.device))
+        if valid_hw is not None and (torch.is_tensor(valid_hw) or tuple(valid_hw) != tuple(hw)):
+            avg = mask_pad_region(avg, valid_hw)
         joints, scores, valid = decode_batch(
             [avg], tags_list, input_hw=hw, max_num_people=self.max_num_people,
             det_thr=self.det_thr, tag_thr=self.tag_thr,
         )
-        return joints, scores, valid, avg, torch.stack(tags_list, dim=-1)
+        return joints, scores, valid, avg
+
+    def _decode_aggregated(self, avg_sum, tags_list, hw, n_scales, valid_hw=None):
+        """``decode_masked`` and the tags stacked for the result object:
+        (joints, scores, valid, avg, tags ``[N, K, h, w, E]``)."""
+        return (*self.decode_masked(avg_sum, tags_list, hw, n_scales, valid_hw),
+                torch.stack(tags_list, dim=-1))
 
     def prepare_input(self, image: np.ndarray, current_scale: float = 1.0, min_scale: float = 1.0):
         """The host batch of one image at one scale: ``[1, H, W, 3]``, uint8

@@ -12,6 +12,8 @@ import logging
 import sys
 from pathlib import Path
 
+from ..utils.utils import is_main_process
+
 _COLORS = {
     logging.DEBUG: "\x1b[38;5;245m",
     logging.INFO: "\x1b[38;5;39m",
@@ -73,14 +75,6 @@ def capture_warnings(logger_name: str = "human_pose_tpu_torch") -> None:
 log = get_pylogger()
 
 
-def _is_main_process() -> bool:
-    """Rank 0, or no process group: ``torch.distributed`` is read only when
-    it is available and initialized."""
-    import torch.distributed as dist
-
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
-
-
 class logged_tqdm:
     """tqdm wrapper that mirrors the progress line into the file logger by
     rewriting on a fixed cadence (reference pylogger.py:141-164)."""
@@ -107,7 +101,7 @@ def log_breaking_point(msg: str, logger: logging.Logger | None = None,
                        n_top: int = 1, n_bottom: int = 1, num_chars: int = 70) -> None:
     """Rank-gated banner separating training phases
     (reference pylogger.py:167-184)."""
-    if not _is_main_process():
+    if not is_main_process():
         return
     lg = logger or log
     for _ in range(n_top):

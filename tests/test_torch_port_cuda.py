@@ -722,3 +722,121 @@ def test_scale_average_card_equals_cpu(dev, n_scales):
     (cj, _, cv, cavg, _), (gj, _, gv, gavg, _) = outs
     assert torch.equal(gavg.cpu(), cavg)
     assert torch.equal(gv.cpu(), cv) and torch.equal(gj.cpu()[..., :3], cj[..., :3])
+
+
+# -- batched COCO eval on the trained C=8 corpus (tests/ap_fixture.py) --------
+
+def _assert_detections_match(serial, batched, coord_tol=0.5):
+    """tests/test_batched_eval.py's ``assert_detections_match`` (that module
+    imports the JAX package, which this file must not): the same images and
+    person counts, each person's joints within ``coord_tol`` px and its
+    score within 1e-3 of its best match."""
+    by_image = lambda dets: {d["image_id"]: [e for e in dets if e["image_id"] == d["image_id"]]  # noqa: E731
+                             for d in dets}
+    s, b = by_image(serial), by_image(batched)
+    assert set(s) == set(b)
+    for image_id in s:
+        sd, bd = s[image_id], b[image_id]
+        assert len(sd) == len(bd), f"image {image_id}: {len(sd)} vs {len(bd)} persons"
+        used = set()
+        for det in sd:
+            sk = np.asarray(det["keypoints"], np.float64).reshape(-1, 3)[:, :2]
+            errs = [(np.abs(sk - np.asarray(c["keypoints"], np.float64).reshape(-1, 3)[:, :2]).max(), j)
+                    for j, c in enumerate(bd) if j not in used]
+            best_err, best = min(errs)
+            assert best_err < coord_tol, f"image {image_id}: max coord err {best_err}"
+            assert abs(det["score"] - bd[best]["score"]) < 1e-3
+            used.add(best)
+
+
+@pytest.fixture(scope="module")
+def fixture_eval(dev, tmp_path_factory):
+    """tests/ap_fixture.py's corpus (10 images of 96x96, 2 persons each),
+    built from its image list (tests/test_data.py, which writes that list,
+    imports the JAX package), pre-baked, and a factory of inference models
+    on the trained fixture weights, flip on, at the AP check's eval point."""
+    import json
+    from pathlib import Path
+
+    from human_pose_tpu_torch.data import CocoKeypointsDataset, prebake_annotations
+    from human_pose_tpu_torch.inference import InferenceKeypointsModel, load_inference_weights
+    from human_pose_tpu_torch.models import HigherHRNet
+    from tests.ap_fixture import N_IMAGES, WEIGHTS_PATH, make_learnable_fixture
+
+    root = tmp_path_factory.mktemp("eval") / "coco"
+    (root / "images" / "val2017").mkdir(parents=True)
+    (root / "annotations").mkdir()
+    gt = {"images": [{"id": i, "file_name": f"{i:012d}.jpg", "height": 96, "width": 96}
+                     for i in range(N_IMAGES)]}
+    make_learnable_fixture(root, gt)
+    assert json.loads((root / "annotations" / "person_keypoints_val2017.json").read_text())
+    prebake_annotations(str(root), "val2017")
+    ds = CocoKeypointsDataset(str(root), "val2017")
+    sd = load_inference_weights(WEIGHTS_PATH)
+    nets = {}
+    for device in ("cpu", dev):
+        nets[str(device)] = HigherHRNet(num_kpts=17, C=8, device=device).eval()
+        nets[str(device)].load_state_dict(sd)
+
+    def model(device, **kw):
+        return InferenceKeypointsModel(nets[str(device)], device=device, det_thr=0.25, tag_thr=0.4,
+                                       input_size=64, max_num_people=10, use_flip=True, **kw)
+    assert Path(ds.images_filepaths[0]).exists() and len(ds) == N_IMAGES
+    return ds, model
+
+
+def _batched(im, ds, batch_size):
+    from human_pose_tpu_torch.inference import BatchedKeypointsEvaluator, image_id_from_path
+
+    ev = BatchedKeypointsEvaluator(im, batch_size=batch_size)
+    for i in range(len(ds)):
+        ev.add(ds.load_image(i), image_id_from_path(ds.images_filepaths[i], i), ds.load_annot(i))
+    dets, _ = ev.finish()
+    return ev, dets
+
+
+@pytest.mark.parametrize("pad_multiple", [64, 128])
+@pytest.mark.parametrize("batch_size", [2, 4])
+def test_batched_eval_matches_serial_on_card(fixture_eval, dev, batch_size, pad_multiple):
+    """The batched evaluator on the card equals the serial one within
+    tests/test_batched_eval.py's tolerances, launching the dense refine and
+    the grouping once a batch (P = 10)."""
+    from human_pose_tpu_torch.bin.eval_keypoints import evaluate_dataset
+
+    ds, model = fixture_eval
+    im = model(dev, pad_multiple=pad_multiple)
+    serial = evaluate_dataset(im, ds)
+    refine_argmax_batch.launches = match_by_tag_batched.launches = 0
+    ev, batched = _batched(im, ds, batch_size)
+    assert ev.n_batches == -(-len(ds) // batch_size) and len(ev.buckets) == 1
+    assert refine_argmax_batch.launches == match_by_tag_batched.launches == ev.n_batches
+    assert len({d["image_id"] for d in batched}) == len(ds)
+    _assert_detections_match(serial, batched)
+
+
+def test_batched_eval_card_equals_cpu(fixture_eval, dev):
+    """The batched evaluator's decisions on the card equal the CPU's (pad
+    128: each image's pad region masked on the device)."""
+    ds, model = fixture_eval
+    _, cpu = _batched(model("cpu", pad_multiple=128), ds, 4)
+    _, card = _batched(model(dev, pad_multiple=128), ds, 4)
+    _assert_detections_match(cpu, card)
+
+
+def test_batched_decode_per_image_valid_sizes(fixture_eval, dev):
+    """A batch-4 decode with four different valid sizes equals the four
+    single-image decodes of the same maps, bit for bit."""
+    ds, model = fixture_eval
+    im = model(dev, pad_multiple=128)
+    x = np.stack([im.prepare_input(ds.load_image(i))[0][0] for i in range(4)])
+    avg, tags = im.forward_scale(im.to_device(x), (128, 128))
+    sizes = [(64, 64), (128, 64), (64, 128), (96, 80)]
+    refine_argmax_batch.launches = match_by_tag_batched.launches = 0
+    batched = im.decode_masked(avg, tags, (128, 128), 1.0,
+                               torch.tensor(sizes, dtype=torch.int32, device=dev))
+    assert refine_argmax_batch.launches == match_by_tag_batched.launches == 1
+    for i, hw in enumerate(sizes):
+        alone = im.decode_masked(avg[i:i + 1], [t[i:i + 1] for t in tags], (128, 128), 1.0, hw)
+        for got, want in zip(batched, alone):
+            assert torch.equal(got[i:i + 1], want)
+    assert int(batched[2].sum()) >= 4
