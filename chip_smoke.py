@@ -7,6 +7,7 @@
     python3 chip_smoke.py --block-only         # the fused BasicBlock alone, see the end
     python3 chip_smoke.py --infer-only         # the inference model's phase alone, see the end
     python3 chip_smoke.py --eval-only          # the COCO evaluation phase alone, see the end
+    python3 chip_smoke.py --train-only         # the training phase alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -66,6 +67,14 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    image (rel 1e-3); ``bin.eval_keypoints.main`` serial and batched writes
    its three files; img/s serial and batched in float32 and bfloat16, the
    batched path's device busy and idle share, its host syncs by line
+9. training (``train_phase``): one float32 Adam step (TF32 off) of a
+   reduced HigherHRNet (C=8) on the card and on the CPU from the same
+   weights and batch, held within stated tolerances (losses, gradients,
+   BatchNorm statistics, parameters); W32 from the keypoints yaml at its
+   published point (Adam lr 1e-3, batch 36, 512x512, 30 persons, a batch
+   made on the card, uint8 images) in float32 and bfloat16: ms a step, img/s,
+   peak memory, device busy and idle share of one step, every loss finite;
+   the accumulated step at 2 microbatches; no kernel launched
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
@@ -103,7 +112,8 @@ SM; it prints one JSON object last (no ``ok`` line).
 
 ``--infer-only`` builds the dense refine and the grouping and runs phase 6
 alone on the W32 model; it prints the phase's record as one JSON object
-last (no ``ok`` line). ``--eval-only`` does the same for phase 8.
+last (no ``ok`` line). ``--eval-only`` does the same for phase 8 and
+``--train-only`` for phase 9 (which builds no kernel).
 """
 
 from __future__ import annotations
@@ -421,6 +431,8 @@ KERNEL_GROUPS = (
     ("basic_block", "fused BasicBlock kernel"),
     ("batch_norm", "batch norm"), ("max_pool", "NMS max-pool"),
     ("xmma", "convolutions"), ("cutlass", "convolutions"), ("conv", "convolutions"),
+    ("wgrad", "convolutions"), ("dgrad", "convolutions"), ("fft", "convolutions"),
+    ("multi_tensor_apply", "optimizer"), ("reduce_kernel", "reductions"),
     ("gemm", "convolutions"), ("copy", "copies / casts"), ("add", "adds"),
     ("clamp", "ReLU"), ("upsample", "resizes"), ("sort", "sorts / top-k"),
 )
@@ -1090,6 +1102,21 @@ def make_counted(counters: dict):
     return counted
 
 
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by kernel name; each counts its
+    launches in ``.launches``."""
+    from human_pose_tpu_torch.ops import cuda_aggregate, cuda_conv, cuda_decode, cuda_match
+
+    return {
+        "match_by_tag": cuda_match.match_by_tag_batched,
+        "refine_argmax": cuda_decode.refine_argmax_batch,
+        "match_by_tag_per_image": cuda_match.match_by_tag_per_image,
+        "fused_aggregate": cuda_aggregate.fused_aggregate,
+        "refine_argmax_phase": cuda_aggregate.refine_argmax_phase_batch,
+        "fused_basic_block": cuda_conv.fused_basic_block,
+    }
+
+
 def infer_inputs(rng, cfg: dict, dev):
     """Seeded uint8 device inputs ``{scale: [1, 3, h, w]}`` at the sizes
     ``prepare_input`` gives a 480x640 raw image (``get_multi_scale_size``;
@@ -1533,6 +1560,204 @@ def eval_only(dev, smi: str) -> int:
     return 0
 
 
+# the training phase (phase 9): a reduced net for the card-vs-CPU step, then
+# W32 from the keypoints yaml at its published point (Adam, lr 1e-3, batch
+# 36, 512^2, 30 persons), its batch made on the card
+TRAIN_YAML = EVAL_YAML
+TRAIN_REDUCED = {"num_kpts": K, "C": 8, "num_blocks_per_stage": (1, 1, 1, 1), "num_units": 1,
+                 "num_deconv_resid_blocks": 1}
+TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SIZE = 4, 128
+TRAIN_STEPS = 5
+
+
+def train_batch(n: int, size: int, persons: int, gen, device) -> dict:
+    """A seeded keypoints batch made on ``device`` (``gen`` is a generator
+    there): uint8 images, heatmaps at 1/4 and 1/2 resolution, masks of ones,
+    joints of ``persons`` x K on the 1/4 grid, about half visible (as
+    tests/test_train_steps.py's ``make_kpts_batch``)."""
+    import torch
+
+    kw = {"generator": gen, "device": device}
+    h4, h2 = size // 4, size // 2
+    joints = torch.stack([torch.randint(0, h4, (n, persons, K), **kw),
+                          torch.randint(0, h4, (n, persons, K), **kw),
+                          (torch.rand((n, persons, K), **kw) > 0.5).long()], -1).to(torch.int32)
+    return {"images": torch.randint(0, 256, (n, 3, size, size), dtype=torch.uint8, **kw),
+            "heatmaps": [torch.rand((n, K, h4, h4), **kw), torch.rand((n, K, h2, h2), **kw)],
+            "masks": [torch.ones((n, h4, h4), device=device), torch.ones((n, h2, h2), device=device)],
+            "joints": joints}
+
+
+def train_step_card_vs_cpu(dev, lr: float = 1e-3) -> dict:
+    """One float32 Adam step (TF32 off) of the reduced net (``TRAIN_REDUCED``,
+    batch 4 at 128^2) on the card and on the CPU, from the same
+    ``init_keypoints_weights_`` weights and the same seeded batch. cuDNN's
+    backward sums in its own order, so the checks are tolerances: each loss
+    term within rel 1e-4; each parameter's gradient ||card - cpu|| / ||cpu||
+    <= 1e-3; each BatchNorm running statistic within 1e-3 of its tensor's
+    largest value; the parameters after the step within 2e-5 + 1e-6 where
+    both gradients have one sign and |g| >= 1e-6 (Adam's first update is lr
+    * g / (|g| + 1e-8), so there the two updates differ by at most lr * 1e-8
+    * 2 / 1e-6), and within 2 * lr + 1e-6 elsewhere. Raises on a miss;
+    returns the largest errors."""
+    import copy
+
+    import torch
+
+    from human_pose_tpu_torch.models import HigherHRNet, init_keypoints_weights_
+    from human_pose_tpu_torch.train import TrainState, create_optimizer, keypoints_train_step
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    model = init_keypoints_weights_(HigherHRNet(**TRAIN_REDUCED, device=cpu), gen)
+    batch = train_batch(TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SIZE, 30, gen, cpu)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    def one_step(where):
+        net = copy.deepcopy(model).to(where)
+        state = TrainState.create(net, create_optimizer(net.parameters(), "Adam", lr), device=where)
+        _, metrics = keypoints_train_step(state, batch, lr)
+        return net, {k: float(v) for k, v in metrics.items()}
+
+    (net_c, m_c), (net_g, m_g) = one_step(cpu), one_step(dev)
+    out = {"loss_rel": max(abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c), "metrics_card": m_g}
+    grad_rel, sd_c, sd_g = {}, net_c.state_dict(), net_g.state_dict()
+    p_sure = p_any = 0.0
+    ambiguous = total = 0
+    for (name, pc), (_, pg) in zip(net_c.named_parameters(), net_g.named_parameters()):
+        gc, gg = pc.grad, pg.grad.cpu()
+        grad_rel[name] = float((gg - gc).norm() / gc.norm().clamp(min=1e-30))
+        diff = (sd_g[name].cpu() - sd_c[name]).abs()
+        sure = (gc.abs() >= 1e-6) & (gg.abs() >= 1e-6) & (torch.sign(gc) == torch.sign(gg))
+        p_sure = max(p_sure, float(diff[sure].max()) if bool(sure.any()) else 0.0)
+        p_any = max(p_any, float(diff.max()))
+        ambiguous += int((~sure).sum())
+        total += sure.numel()
+    stats = {k: float((sd_g[k].cpu() - sd_c[k]).abs().max() / sd_c[k].abs().max().clamp(min=1e-30))
+             for k in sd_c if ".running_" in k}
+    moved = sum(not torch.equal(sd_c[k], start[k]) for k in stats)
+    out.update(grad_rel_max=max(grad_rel.values()),
+               grad_rel_worst=max(grad_rel, key=grad_rel.get),
+               bn_stats_rel_max=max(stats.values()), bn_stats_moved=f"{moved} of {len(stats)}",
+               params_sure_abs_max=p_sure, params_abs_max=p_any,
+               params_sign_ambiguous=f"{ambiguous} of {total}")
+    log(f"train step card vs CPU ({TRAIN_REDUCED_BATCH} x {TRAIN_REDUCED_SIZE}^2, C=8 reduced, "
+        f"float32, TF32 off): " + ", ".join(f"{k} {v}" for k, v in out.items()))
+    if not (out["loss_rel"] <= 1e-4 and out["grad_rel_max"] <= 1e-3 and out["bn_stats_rel_max"] <= 1e-3
+            and moved == len(stats) and p_sure <= 2e-5 + 1e-6 and p_any <= 2 * lr + 1e-6):
+        raise AssertionError(f"train step card vs CPU: {out}")
+    return out
+
+
+def train_phase(dev, counted, smi: str) -> dict:
+    """Phase 9: the port's keypoints training step on the card. (1) the
+    reduced step card vs CPU (``train_step_card_vs_cpu``); (2) HigherHRNet-W32
+    from ``TRAIN_YAML`` with ``init_keypoints_weights_``, the yaml's optimizer
+    and scheduler (Adam, lr 1e-3, MultiStepLR) at its batch size and input
+    size, on a batch made on the card, in float32 (TF32 off) and in bfloat16
+    autocast: after one step (cuDNN autotunes) and a 3 s warm-up,
+    ``TRAIN_STEPS`` steps timed by host wall to a device sync (median,
+    spread, img/s), the peak memory, the device busy time and idle share of
+    one step (profiler), every step's losses finite; ``accumulated_keypoints_train_step(2)`` once on the same batch.
+    All of it with every kernel's launch counter zeroed before and required
+    at 0 after: no kernel of the port lies on the training path."""
+    import torch
+
+    from human_pose_tpu_torch.configs import KeypointsConfig
+    from human_pose_tpu_torch.models import init_keypoints_weights_
+    from human_pose_tpu_torch.train import (
+        TrainState, accumulated_keypoints_train_step, create_lr_scheduler, create_optimizer,
+        keypoints_train_step,
+    )
+
+    out = {"card": smi}
+
+    def run():
+        out["card_vs_cpu"] = train_step_card_vs_cpu(dev)
+        cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(
+            str(Path(__file__).resolve().parent / TRAIN_YAML), []))
+        opt_cfg, sched_cfg = cfg.module.optimizers["optim"], cfg.module.lr_schedulers["optim"]
+        opt_params = dict(opt_cfg["params"])
+        base_lr = opt_params.pop("lr")
+        n, size = cfg.dataloader.batch_size, cfg.dataloader.train_ds.out_size
+        persons = cfg.dataloader.train_ds.max_num_people
+        model = init_keypoints_weights_(cfg.create_net(device=dev), torch.Generator().manual_seed(SEED))
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != W32_PARAMS:
+            raise AssertionError(f"train: W32 from {TRAIN_YAML} has {n_params} parameters")
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        batch = train_batch(n, size, persons, torch.Generator(device=dev).manual_seed(SEED), dev)
+        out.update(batch=n, size=size, persons=persons, optimizer=opt_cfg["name"], lr=base_lr,
+                   scheduler=sched_cfg["name"], params=n_params,
+                   visible_joints=int((batch["joints"][..., 2] > 0).sum()))
+        log(f"train: W32 ({n_params} parameters) from {TRAIN_YAML}, {opt_cfg['name']} lr {base_lr}, "
+            f"{sched_cfg['name']}, batch {n} at {size}^2 made on the card, {persons} persons an image")
+        cudnn = torch.backends.cudnn
+        saved = (cudnn.benchmark, cudnn.deterministic, cudnn.enabled)
+        cfg.apply_cudnn()
+        try:
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[-1]
+                model.load_state_dict(init)
+                sched = create_lr_scheduler(base_lr, sched_cfg["name"], sched_cfg["interval"],
+                                            **sched_cfg["params"])
+                state = TrainState.create(
+                    model, create_optimizer(model.parameters(), opt_cfg["name"], base_lr, **opt_params),
+                    dtype=dtype, device=dev)
+                losses = []
+
+                def step():
+                    losses.append(keypoints_train_step(state, batch, sched.lr)[1])
+                    torch.cuda.synchronize()
+
+                torch.cuda.empty_cache()
+                base_mem = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                step()  # cuDNN's autotuning of the step's shapes (cudnn.benchmark)
+                warm = 1 + warm_up(step, 3.0)
+                times = [host_ms(step) for _ in range(TRAIN_STEPS)]
+                peak = torch.cuda.max_memory_allocated()
+                busy, groups = profile_breakdown(step)
+                ms = float(np.median(times))
+                values = [{k: float(v) for k, v in m.items()} for m in losses]
+                if not all(np.isfinite(v).all() for m in values for v in m.values()):
+                    raise AssertionError(f"train {name}: non-finite losses {values}")
+                rec = {"warmup_steps": warm, "ms": ms, "ms_min": min(times), "ms_max": max(times),
+                       "img_per_s": n / ms * 1e3, "peak_gib": peak / 2**30,
+                       "peak_over_start_gib": (peak - base_mem) / 2**30, "busy_ms": busy,
+                       "idle_share": None if busy is None else max(0.0, 1 - busy / ms),
+                       "busy_groups_ms": groups, "steps": state.step,
+                       "loss_per_step": [m["loss"] for m in values]}
+                out[name] = rec
+                idle = "not measured" if busy is None else f"{rec['idle_share']:.3f}"
+                log(f"train {name}: {ms:.1f} ms a step (median of {TRAIN_STEPS} after {warm} warm-up "
+                    f"steps; {min(times):.1f}-{max(times):.1f}), {rec['img_per_s']:.2f} img/s, peak "
+                    f"{rec['peak_gib']:.2f} GiB ({rec['peak_over_start_gib']:.2f} over the phase's start), "
+                    f"device busy {busy} ms (idle share {idle}); loss a step "
+                    f"{[round(v, 6) for v in rec['loss_per_step']]}  [{smi}]")
+                if dtype == torch.float32:
+                    _, acc = accumulated_keypoints_train_step(2)(state, batch, sched.lr)
+                    acc = {k: float(v) for k, v in acc.items()}
+                    if not all(np.isfinite(v) for v in acc.values()):
+                        raise AssertionError(f"train: accumulated step metrics {acc}")
+                    out["accumulated_2"] = acc
+                    log(f"train float32 accumulated_keypoints_train_step(2): {acc}")
+        finally:
+            cudnn.benchmark, cudnn.deterministic, cudnn.enabled = saved
+
+    _, out["launches"] = counted(run, "phase 9 (training: reduced card vs CPU, W32 float32 and "
+                                      "bfloat16 steps, accumulated step)", {})
+    return out
+
+
+def train_only(dev, smi: str) -> int:
+    """Phase 9 alone: no kernel is built (none lies on the training path);
+    every kernel's launch counter is still required to stay at 0. Prints the
+    phase's record as one JSON object last."""
+    counted = make_counted(kernel_counters())
+    print(json.dumps({"train": train_phase(dev, counted, smi)}), flush=True)
+    return 0
+
+
 def refine_only(dev, rng, smi: str) -> int:
     """The short loop for the dense refine: build, SASS counts, parity, then
     its time on the main path's and the dense scene's inputs and over a
@@ -1809,6 +2034,8 @@ def main() -> int:
                         help="build the decode's kernels and run the inference model's phase alone")
     parser.add_argument("--eval-only", action="store_true",
                         help="build the decode's kernels and run the COCO evaluation phase alone")
+    parser.add_argument("--train-only", action="store_true",
+                        help="run the training phase alone (it builds no kernel)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1854,6 +2081,8 @@ def main() -> int:
         return infer_only(dev, rng, smi)
     if args.eval_only:
         return eval_only(dev, smi)
+    if args.train_only:
+        return train_only(dev, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -1901,17 +2130,7 @@ def main() -> int:
     def decode_dense():
         return dense(stages_d, tags_d)
 
-    # every wrapper's launch counter
-    counters = {
-        "match_by_tag": cuda_match.match_by_tag_batched,
-        "refine_argmax": cuda_decode.refine_argmax_batch,
-        "match_by_tag_per_image": cuda_match.match_by_tag_per_image,
-        "fused_aggregate": cuda_aggregate.fused_aggregate,
-        "refine_argmax_phase": cuda_aggregate.refine_argmax_phase_batch,
-        "fused_basic_block": cuda_conv.fused_basic_block,
-    }
-
-    counted = make_counted(counters)
+    counted = make_counted(kernel_counters())
 
     dense_want = {"match_by_tag": 1, "refine_argmax": 1}
     (hms, tags, (joints, scores, valid)), launches = counted(
@@ -2079,6 +2298,9 @@ def main() -> int:
     # 8. COCO evaluation
     eval_rec = eval_phase(dev, counted, smi)
 
+    # 9. training
+    train_rec = train_phase(dev, counted, smi)
+
     # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
     dense_in = record_kernel_inputs(decode_dense)
@@ -2199,6 +2421,7 @@ def main() -> int:
                               "card": smi}}), flush=True)
     print(json.dumps({"inference": infer_rec}), flush=True)
     print(json.dumps({"eval": eval_rec}), flush=True)
+    print(json.dumps({"train": train_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

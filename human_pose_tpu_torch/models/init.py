@@ -1,4 +1,5 @@
-"""Seeded random weights for models built without a checkpoint."""
+"""Seeded random weights for models built without a checkpoint, and the
+keypoints training init (port of human_pose_tpu/models/init.py)."""
 
 from __future__ import annotations
 
@@ -24,6 +25,21 @@ def init_flax_default_(model: nn.Module, generator: torch.Generator) -> nn.Modul
             std = 1.0 / math.sqrt(cin * kh * kw) / 0.87962566103423978
             vals = torch.empty(w.shape).normal_(generator=generator).clamp_(-2.0, 2.0)
             w.copy_(vals * std)
+            if m.bias is not None:
+                m.bias.zero_()
+    return model
+
+
+@torch.no_grad()
+def init_keypoints_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The keypoints training init: every conv and transposed-conv kernel
+    drawn from N(0, 0.001), every conv bias zeroed, BN left as it is ((1, 0)
+    on a new model). Draws on the CPU from ``generator``, so a seed gives the
+    same weights on every device; the JAX package's ``fold_in`` stream is not
+    reproduced, only the distribution."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            m.weight.copy_(torch.empty(m.weight.shape).normal_(generator=generator) * 0.001)
             if m.bias is not None:
                 m.bias.zero_()
     return model

@@ -16,5 +16,8 @@ def prep_images(images: torch.Tensor, out_dtype: torch.dtype | None = None) -> t
         return images
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=images.device)[:, None, None]
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=images.device)[:, None, None]
-    out = (images.to(torch.float32) / 255.0 - mean) / std
+    # a true division on every device: a Python-scalar divisor makes CUDA
+    # multiply by its reciprocal, an ulp off the CPU's and JAX's quotient
+    scale = torch.tensor(255.0, dtype=torch.float32, device=images.device)
+    out = (images.to(torch.float32) / scale - mean) / std
     return out if out_dtype is None else out.to(out_dtype)

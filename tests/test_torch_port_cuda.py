@@ -840,3 +840,76 @@ def test_batched_decode_per_image_valid_sizes(fixture_eval, dev):
         for got, want in zip(batched, alone):
             assert torch.equal(got[i:i + 1], want)
     assert int(batched[2].sum()) >= 4
+
+
+# -- the training slice: prep_images, train-mode BatchNorm, one step ------------
+
+def test_prep_images_card_equals_cpu(dev):
+    """All 256 uint8 values in each of the 3 channels normalize to the same
+    float32 bits on the card as on the CPU: ``prep_images`` divides by a
+    device tensor, not by a Python 255.0 (which CUDA turns into a multiply
+    by its reciprocal)."""
+    from human_pose_tpu_torch.ops import prep_images
+
+    u8 = torch.arange(256, dtype=torch.uint8)[None, None, :, None].expand(1, 3, 256, 1).contiguous()
+    assert torch.equal(prep_images(u8.to(dev)).cpu(), prep_images(u8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_train_card_equals_cpu(dev, dtype):
+    """One train-mode call of the port's BatchNorm (flax's: biased E[x^2] -
+    E[x]^2 variance) on the card and on the CPU with the same input: the
+    running mean and variance within 1e-5 of their largest value (float32
+    moments of the same values, summed in other orders). The card's output
+    and gradients of x, weight and bias against a float64 evaluation of the
+    same formulas on the same values: within 1e-4 of their scale in float32;
+    within 2**-7 in bfloat16, one bf16 rounding: the output and the gradient
+    of x are bfloat16 tensors (2.8e-3 on either device), and the card's
+    backward kernel returns the weight's and the bias's gradients at bf16
+    precision for bfloat16 x (2.3e-3, 4.4e-3 measured; the CPU's 5e-7)."""
+    from human_pose_tpu_torch.models.norm import batch_norm
+
+    gen = torch.Generator().manual_seed(11)
+    x = (torch.randn((6, 32, 24, 20), generator=gen) * (0.1 + 3 * torch.rand((1, 32, 1, 1), generator=gen))
+         + torch.randn((1, 32, 1, 1), generator=gen)).to(dtype)
+    gy = torch.randn(x.shape, generator=gen).to(dtype)
+    w, b = torch.linspace(0.5, 1.5, 32), torch.linspace(-0.2, 0.2, 32)
+    stats, outs = [], None
+    for where in ("cpu", dev):
+        m = batch_norm(32).to(where).train()
+        with torch.no_grad():
+            m.weight.copy_(w)
+            m.bias.copy_(b)
+        xx = x.detach().to(where).requires_grad_()
+        y = m(xx)
+        y.backward(gy.to(where))
+        stats.append([t.cpu() for t in (m.running_mean, m.running_var)])
+        outs = [t.detach().double().cpu() for t in (y, xx.grad, m.weight.grad, m.bias.grad)]
+    for got, want in zip(stats[1], stats[0]):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    x64, gy64, c = x.double(), gy.double(), (None, slice(None), None, None)
+    mean = x64.mean((0, 2, 3))
+    xhat = (x64 - mean[c]) / (x64.var((0, 2, 3), unbiased=False) + 1e-5).sqrt()[c]
+    grad_w = (gy64 * xhat).sum((0, 2, 3))
+    grad_b = gy64.sum((0, 2, 3))
+    n = x64.numel() / 32
+    grad_x = (w.double() / (x64.var((0, 2, 3), unbiased=False) + 1e-5).sqrt())[c] * (
+        gy64 - (grad_b / n)[c] - xhat * (grad_w / n)[c])
+    want = [xhat * w.double()[c] + b.double()[c], grad_x, grad_w, grad_b]
+    for i, (got, ref) in enumerate(zip(outs, want)):
+        tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        assert err <= tol, (i, err)
+
+
+def test_train_step_reduced_card_equals_cpu(dev):
+    """One float32 Adam step of the reduced HigherHRNet (C=8, one unit a
+    stage, one deconv residual block; batch 4 at 128^2) on the card and on
+    the CPU from the same weights and batch: ``chip_smoke``'s phase 9 check
+    and its tolerances (loss terms rel 1e-4, gradients 1e-3, BN statistics,
+    parameters after the step)."""
+    import chip_smoke
+
+    out = chip_smoke.train_step_card_vs_cpu(dev)
+    assert out["loss_rel"] <= 1e-4 and out["grad_rel_max"] <= 1e-3

@@ -173,3 +173,13 @@ def test_prep_images_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
     assert prep_images(got) is got
     assert prep_images(x, out_dtype=torch.bfloat16).dtype == torch.bfloat16
+
+
+def test_prep_images_equals_jax_on_every_uint8():
+    """All 256 uint8 values in each of the 3 channels normalize to JAX's
+    float32 bits exactly: the port divides by 255 as JAX on the CPU does."""
+    u8 = np.broadcast_to(np.arange(256, dtype=np.uint8)[None, :, None, None], (1, 256, 1, 3)).copy()
+    want = np.asarray(jax_prep_images(jnp.asarray(u8))).transpose(0, 3, 1, 2)
+    got = prep_images(torch.from_numpy(u8.transpose(0, 3, 1, 2).copy())).numpy()
+    assert got.shape == want.shape == (1, 3, 256, 1)
+    np.testing.assert_array_equal(got, want)
