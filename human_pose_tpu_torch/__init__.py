@@ -16,6 +16,10 @@ so each counterpart is easy to find:
   code it needs (NumPy; cv2 imported only inside the functions that use it)
 * ``inference.batched_eval`` — shape-bucketed batched COCO evaluation
 * ``configs`` — the yaml + ``--a.b.c=v`` keypoints config and its factories
+* ``train`` — keypoints training: losses, optimizers, schedulers, the train
+  and val steps, ``KeypointsModule`` and the device prefetch; ``data`` holds
+  its input pipeline (targets with a host C++ heatmap splat, augmentations,
+  the COCO dataset's training side, ``collate``, the threaded loader)
 * ``bin`` — the ``eval_keypoints`` and ``inference_keypoints`` CLIs
 
 Entry points that create tensors or models take ``device=`` and default to

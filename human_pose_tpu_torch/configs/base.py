@@ -5,10 +5,11 @@ Counterpart of reference src/base/config.py: yaml -> dict -> recursive
 dataclasses, their fields and defaults are the JAX package's, so one yaml
 and one argv structure into the same config in both packages. Debug-mode
 rename (limit_batches > 0 -> experiment "debug"), ``ckpt_path: auto`` and
-the run-dir layout ``results/<exp>/<run>/<timestamp>`` are kept. The training factories (datamodule, module, callbacks, trainer), the
-logger and the mesh come with ROADMAP modules 10, 16 and 14 and raise until
-then; the run's seeding and file logging (``seed``, ``initialize_logging``)
-come with training.
+the run-dir layout ``results/<exp>/<run>/<timestamp>`` are kept. The
+keypoints config builds the training datamodule and module; the callbacks,
+the trainer and the run's file logging come with the training engine
+(ROADMAP module 10d), the logger with module 16, the mesh and more than one
+BatchNorm group with module 14, and raise until then.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from ..loggers.pylogger import log
 from ..utils.files import load_yaml
+from ..utils.utils import get_rank, seed_everything
 from .cli import update_config
 from .structured import structure, unstructure
 
@@ -43,8 +45,24 @@ def find_last_checkpoint(experiment_dir: Path, run_name: str | None = None):
     return str(latest)
 
 
-def _not_ported(what: str, module: int, name: str) -> NotImplementedError:
+def _not_ported(what: str, module, name: str) -> NotImplementedError:
     return NotImplementedError(f"{what} comes with the port's {name}, ROADMAP module {module}")
+
+
+def process_count() -> int:
+    """The world size of ``torch.distributed``'s process group, or 1 when
+    none is initialized."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _device_count(accelerator: str) -> int:
+    """The devices data parallelism would span, as ``jax.device_count()``
+    does in the JAX package: the processes' cards, or 1 on the CPU."""
+    if process_count() > 1:
+        return process_count()
+    return 1 if accelerator == "cpu" else max(1, torch.cuda.device_count())
 
 
 @dataclass
@@ -72,7 +90,7 @@ class DataloaderConfig:
     pin_memory: bool = True
     num_workers: int = 4
     # uint8 images, fp16 targets and bool masks on the host, normalized on
-    # the device (training, module 10)
+    # the device
     compact_batches: bool = False
     train_ds: DatasetConfig = field(default_factory=DatasetConfig)
     val_ds: DatasetConfig = field(default_factory=DatasetConfig)
@@ -93,7 +111,7 @@ class TrainerConfig:
     use_DDP: bool = True
     sync_batchnorm: bool = False
     use_compile: bool = False
-    # the trainer's fields below are read by the port's training (module 10)
+    # the trainer's fields below are read by the port's trainer (module 10d)
     ckpt_backend: str = "flax"
     profile_dir: str | None = None
     profile_steps: int = 5
@@ -248,11 +266,29 @@ class BaseConfig:
         torch.backends.cudnn.benchmark = self.cudnn.benchmark
         torch.backends.cudnn.deterministic = self.cudnn.deterministic or self.setup.deterministic
 
+    def seed(self) -> None:
+        """Seed python, numpy and torch per rank, as the reference does
+        (src/base/bin/train.py:44-49)."""
+        seed_everything(self.setup.seed + get_rank())
+
     def make_mesh(self):
         raise _not_ported("make_mesh", 14, "parallelism")
 
     def bn_groups(self, mesh=None) -> int:
-        raise _not_ported("bn_groups (per-device BatchNorm statistics)", 14, "parallelism")
+        """BatchNorm statistics scope for training, as the JAX package's: one
+        group with ``trainer.sync_batchnorm`` (global batch moments), else one
+        a device under data parallelism (the reference's per-device
+        statistics). One device gives 1 either way; more than one group
+        (per-device BatchNorm) raises."""
+        if self.trainer.sync_batchnorm:
+            return 1
+        if mesh is not None:
+            raise _not_ported("bn_groups over a device mesh", 14, "parallelism")
+        groups = _device_count(self.trainer.accelerator) if self.trainer.use_DDP else 1
+        if groups > 1:
+            raise _not_ported(f"bn_groups {groups} (per-device BatchNorm statistics)", 14,
+                              "parallelism")
+        return 1
 
     # -- factories (overridden per task) ------------------------------------------
     def create_net(self):
@@ -262,17 +298,17 @@ class BaseConfig:
         raise NotImplementedError
 
     def create_datamodule(self):
-        raise _not_ported("create_datamodule", 10, "training")
+        raise NotImplementedError
 
     def create_module(self, mesh=None):
-        raise _not_ported("create_module", 10, "training")
+        raise NotImplementedError
 
     def create_callbacks(self) -> list:
-        raise _not_ported("create_callbacks", 10, "training")
+        raise _not_ported("create_callbacks", "10d", "training engine")
 
     def create_logger(self):
         raise _not_ported("create_logger (the run's trackers, loggers/loggers.py)", 16,
                           "utilities and observability")
 
     def create_trainer(self, logger=None):
-        raise _not_ported("create_trainer", 10, "training")
+        raise _not_ported("create_trainer", "10d", "training engine")

@@ -1,7 +1,7 @@
 """Keypoints task config (port of human_pose_tpu/configs/keypoints.py;
-counterpart of reference src/keypoints/config.py): the network and the
-inference model from a yaml. The datamodule and the training module come
-with ROADMAP module 10."""
+counterpart of reference src/keypoints/config.py): the network, the
+inference model, the training datamodule (COCO datasets, transforms,
+loaders) and the training module from a yaml."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..loggers.pylogger import log
-from .base import BaseConfig, TransformConfig
+from .base import BaseConfig, TransformConfig, process_count
 
 ARCHITECTURES = ("HigherHRNet", "Hourglass", "SimpleBaseline", "HRNet")
 # the JAX model's layout (space-to-depth) and rematerialization switches:
@@ -64,6 +64,91 @@ class KeypointsConfig(BaseConfig):
                   for k, v in dict(self.net.params).items() if k not in JAX_ONLY_NET_PARAMS}
         return HigherHRNet(**params, device=device or self.target_device())
 
+    def _make_transform(self):
+        """``KeypointsTransform`` from the ``transform`` section; compact
+        batches leave the image uint8 and normalize on the device with the
+        ImageNet constants, so they refuse another mean or std."""
+        from ..data.transforms import KeypointsTransform
+
+        t = self.transform
+        if self.dataloader.compact_batches and (
+            list(t.mean) != [0.485, 0.456, 0.406] or list(t.std) != [0.229, 0.224, 0.225]
+        ):
+            raise ValueError(
+                "dataloader.compact_batches requires the default ImageNet mean/std — the "
+                "device-side normalize (ops/images.py::prep_images) uses those constants"
+            )
+        return KeypointsTransform(
+            normalize=not self.dataloader.compact_batches,
+            out_size=t.out_size,
+            hm_resolutions=t.hm_resolutions,
+            max_rotation=t.max_rotation,
+            min_scale=t.min_scale,
+            max_scale=t.max_scale,
+            scale_type=t.scale_type,
+            max_translate=t.max_translate,
+            mean=t.mean,
+            std=t.std,
+        )
+
+    def create_datamodule(self):
+        """COCO train and val datasets with the train and inference
+        transforms, and their loaders (the train one shuffled), sharded over
+        ``torch.distributed``'s processes when a group is initialized."""
+        from ..data.coco import CocoKeypointsDataset, collate
+        from ..data.loader import DataLoader
+        from ..train.trainer import DataModule
+        from ..utils.utils import get_rank
+
+        t = self._make_transform()
+        dl_cfg = self.dataloader
+        common = dict(
+            out_size=dl_cfg.train_ds.out_size,
+            hm_resolutions=dl_cfg.train_ds.hm_resolutions,
+            num_kpts=dl_cfg.train_ds.num_kpts,
+            max_num_people=dl_cfg.train_ds.max_num_people,
+            sigma=dl_cfg.train_ds.sigma,
+            compact=dl_cfg.compact_batches,
+        )
+        train_ds = CocoKeypointsDataset(
+            dl_cfg.train_ds.root, dl_cfg.train_ds.split, t.train,
+            mosaic_probability=dl_cfg.train_ds.mosaic_probability, **common,
+        )
+        val_ds = CocoKeypointsDataset(dl_cfg.val_ds.root, dl_cfg.val_ds.split, t.inference, **common)
+        kw = dict(
+            batch_size=dl_cfg.batch_size,
+            collate_fn=collate,
+            num_workers=dl_cfg.num_workers,
+            seed=self.setup.seed,
+            process_index=get_rank(),
+            process_count=process_count(),
+        )
+        train_dl = DataLoader(train_ds, shuffle=True, **kw) if len(train_ds) else None
+        val_dl = DataLoader(val_ds, shuffle=False, drop_last=False, **kw) if len(val_ds) else None
+        if train_dl is None:
+            log.warning("empty train dataset — datamodule has no train loader")
+        return DataModule(train_dl, val_dl, train_ds, val_ds)
+
+    def create_module(self, mesh=None, device=None):
+        """``KeypointsModule`` on the network (on ``device``, default
+        ``target_device()``), in ``compute_dtype()``, with the keypoints
+        init seeded from ``setup.seed`` and the yaml's optimizer and
+        schedulers; host batches staged in pinned memory when
+        ``dataloader.pin_memory`` is set."""
+        from ..train.module import KeypointsModule
+
+        model = self.create_net(bn_groups=self.bn_groups(mesh), device=device)
+        return KeypointsModule.create(
+            model,
+            optimizers_cfg=unstruct_optims(self.module.optimizers),
+            lr_schedulers_cfg=unstruct_optims(self.module.lr_schedulers),
+            seed=self.setup.seed,
+            mesh=mesh,
+            accumulate_grad_batches=self.module.accumulate_grad_batches,
+            dtype=self.compute_dtype(),
+            pin_memory=self.dataloader.pin_memory,
+        )
+
     def create_inference_model(self, ckpt_path: str | None = None, device=None):
         """``InferenceKeypointsModel`` on the network, weights from
         ``ckpt_path`` or ``inference.ckpt_path`` (a flax npz or a reference
@@ -94,3 +179,9 @@ class KeypointsConfig(BaseConfig):
             dtype=self.compute_dtype(),
             device=next(net.parameters()).device,
         )
+
+
+def unstruct_optims(cfg: dict) -> dict:
+    """``module.optimizers`` / ``module.lr_schedulers`` arrive as plain
+    dicts from yaml; passed through unchanged."""
+    return cfg or {}

@@ -1,11 +1,12 @@
 """Host-side data code (NumPy; cv2 imported where it is used): the affine
-math and normalization of the inference path, COCO masks, the COCO dataset's
-eval side, directory and video datasets. The training augmentations, targets
-and loader come with training (ROADMAP module 10)."""
+math, normalization and the keypoints training augmentations, the heatmap
+and joints targets (with the native splat), COCO masks, the COCO dataset
+with its mosaic and ``collate``, the loader, directory and video datasets."""
 
 from .affine import (
     affine_transform_point,
     get_affine_transform,
+    get_aug_affine_matrix,
     get_multi_scale_size,
     resize_align_multi_scale,
     transform_coords_inverse,
@@ -19,8 +20,19 @@ from .coco import (
     get_coco_joints,
     prebake_annotations,
 )
+from .loader import DataLoader
 from .rle import get_crowd_mask, polygons_to_mask, segmentation_to_mask
-from .transforms import COCO_FLIP_INDEX, inverse_normalize, normalize
+from .targets import HeatmapGenerator, JointsGenerator
+from .transforms import (
+    COCO_FLIP_INDEX,
+    ComposeKeypointsTransform,
+    KeypointsTransform,
+    NormalizeKeypoints,
+    RandomAffineTransform,
+    RandomHorizontalFlip,
+    inverse_normalize,
+    normalize,
+)
 from .video import InferenceVideoDataset, VideoProcessingResult
 
 __all__ = [
@@ -29,14 +41,23 @@ __all__ = [
     "COCO_LABELS",
     "COCO_LIMBS",
     "CocoKeypointsDataset",
+    "ComposeKeypointsTransform",
+    "DataLoader",
     "DirectoryDataset",
     "ExplorerDataset",
+    "HeatmapGenerator",
     "InferenceDataset",
     "InferenceVideoDataset",
+    "JointsGenerator",
+    "KeypointsTransform",
+    "NormalizeKeypoints",
+    "RandomAffineTransform",
+    "RandomHorizontalFlip",
     "VideoProcessingResult",
     "affine_transform_point",
     "collate",
     "get_affine_transform",
+    "get_aug_affine_matrix",
     "get_coco_joints",
     "get_crowd_mask",
     "get_multi_scale_size",

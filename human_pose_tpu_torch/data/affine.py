@@ -2,9 +2,10 @@
 
 Port of human_pose_tpu/data/affine.py: the 3-point-correspondence affine
 (center/scale/rot -> 2x3 matrix), the 64-multiple multi-scale size alignment
-used for inference resizing, and the point-mapping helpers, with the same
-formulas so decoded keypoints map back to the same raw-image coordinates.
-The training affine (``get_aug_affine_matrix``) comes with training.
+used for inference resizing, the point-mapping helpers and the training
+augmentation's affine (``get_aug_affine_matrix``), with the same formulas
+so decoded keypoints map back to the same raw-image coordinates and the
+training samples are the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -101,3 +102,30 @@ def transform_coords_inverse(kpts_xy: np.ndarray, center, scale, output_size) ->
     mapped = np.concatenate([flat, ones], axis=1) @ matrix.T
     return mapped.reshape(kpts_xy.shape)
 
+
+
+def get_aug_affine_matrix(center, scale_200: float, res: tuple, rot: float = 0.0) -> np.ndarray:
+    """Training-augmentation affine (reference src/keypoints/transforms.py:95-119):
+    scale is in units of 200 px; rotation is about the OUTPUT center."""
+    h = 200.0 * scale_200
+    t = np.zeros((3, 3))
+    t[0, 0] = res[1] / h
+    t[1, 1] = res[0] / h
+    t[0, 2] = res[1] * (-float(center[0]) / h + 0.5)
+    t[1, 2] = res[0] * (-float(center[1]) / h + 0.5)
+    t[2, 2] = 1.0
+    if rot != 0:
+        rot = -rot
+        rot_rad = rot * np.pi / 180.0
+        sn, cs = np.sin(rot_rad), np.cos(rot_rad)
+        rot_mat = np.zeros((3, 3))
+        rot_mat[0, :2] = [cs, -sn]
+        rot_mat[1, :2] = [sn, cs]
+        rot_mat[2, 2] = 1.0
+        t_mat = np.eye(3)
+        t_mat[0, 2] = -res[1] / 2.0
+        t_mat[1, 2] = -res[0] / 2.0
+        t_inv = t_mat.copy()
+        t_inv[:2, 2] *= -1
+        t = t_inv @ rot_mat @ t_mat @ t
+    return t

@@ -13,6 +13,10 @@ can move a tag distance across a ``.5`` rounding boundary and flip an
 assignment against the plain version, and the fused front end's lerps are
 bit-equal to the plain version only unfused. The convolution kernel runs
 its products on the tensor cores.
+
+Host libraries (``csrc/<name>.cpp``: the data pipeline's heatmap splat) are
+built the same way with the host C++ compiler (``load_host_library``), so
+they build and run wherever the port does, the CPU included.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -50,7 +55,13 @@ SIGNATURES = {
     },
 }
 
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+HOST_SIGNATURES = {
+    "heatmap_splat": {"splat_heatmaps": [_P, _I, _I, _I, ctypes.c_double, _P]},
+}
+
 _loaded: dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 build_logs: dict[str, str] = {}  # name -> nvcc/ptxas output of this process's builds
 
 
@@ -65,9 +76,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME and /usr/local/cuda)")
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def _lib_path(name: str, suffix: str = ".cu", flags=NVCC_FLAGS) -> Path:
+    src = (CSRC / f"{name}{suffix}").read_bytes()
+    digest = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 
 
@@ -102,15 +113,54 @@ def build_kernels(names=tuple(SIGNATURES)) -> dict[str, float]:
     return seconds
 
 
+def _bind(path: Path, signatures: dict) -> ctypes.CDLL:
+    """Load the library at ``path`` and declare its functions' ctypes
+    argument types (each returns an int status)."""
+    lib = ctypes.CDLL(str(path))
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load_kernel(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it on first use."""
     lib = _loaded.get(name)
     if lib is None:
         build_kernels((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn_name, argtypes in SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _loaded[name] = lib
+        lib = _loaded[name] = _bind(_lib_path(name), SIGNATURES[name])
     return lib
+
+
+def _cxx() -> str:
+    found = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not found:
+        raise RuntimeError("no host C++ compiler found ($CXX, c++ or g++ on PATH)")
+    return found
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library ``csrc/<name>.cpp``, built with the host C++
+    compiler on first use (``CXX_FLAGS``); raises with the compiler's output
+    when the build fails. Safe to call from several threads and processes:
+    a thread lock guards this process's build, and the library is written
+    under a temporary name and moved into place."""
+    with _host_lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        out = _lib_path(name, ".cpp", CXX_FLAGS)
+        if not out.exists():
+            BUILD.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+                                  capture_output=True, text=True)
+            build_logs[name] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"host library build failed: {name} (exit {proc.returncode})\n"
+                                   f"{build_logs[name]}")
+            os.replace(tmp, out)
+        lib = _loaded[name] = _bind(out, HOST_SIGNATURES[name])
+        return lib

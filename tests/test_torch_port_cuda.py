@@ -862,11 +862,12 @@ def test_batch_norm_train_card_equals_cpu(dev, dtype):
     running mean and variance within 1e-5 of their largest value (float32
     moments of the same values, summed in other orders). The card's output
     and gradients of x, weight and bias against a float64 evaluation of the
-    same formulas on the same values: within 1e-4 of their scale in float32;
-    within 2**-7 in bfloat16, one bf16 rounding: the output and the gradient
-    of x are bfloat16 tensors (2.8e-3 on either device), and the card's
-    backward kernel returns the weight's and the bias's gradients at bf16
-    precision for bfloat16 x (2.3e-3, 4.4e-3 measured; the CPU's 5e-7)."""
+    same formulas on the same values: within 1e-4 of their scale in float32.
+    In bfloat16 the output and the gradient of x are bfloat16 tensors, held
+    within 2**-7, one bf16 rounding (2.8e-3 on either device); the weight's
+    and the bias's gradients are float32 sums, as in JAX's bf16 step, held
+    within 1e-4 (the card's own backward kernel gave them at bf16
+    precision, 2.3e-3 and 4.4e-3, so the port sums them itself)."""
     from human_pose_tpu_torch.models.norm import batch_norm
 
     gen = torch.Generator().manual_seed(11)
@@ -898,7 +899,7 @@ def test_batch_norm_train_card_equals_cpu(dev, dtype):
         gy64 - (grad_b / n)[c] - xhat * (grad_w / n)[c])
     want = [xhat * w.double()[c] + b.double()[c], grad_x, grad_w, grad_b]
     for i, (got, ref) in enumerate(zip(outs, want)):
-        tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+        tol = 2 ** -7 if dtype == torch.bfloat16 and i < 2 else 1e-4
         err = float((got - ref).abs().max()) / float(ref.abs().max())
         assert err <= tol, (i, err)
 
@@ -907,9 +908,110 @@ def test_train_step_reduced_card_equals_cpu(dev):
     """One float32 Adam step of the reduced HigherHRNet (C=8, one unit a
     stage, one deconv residual block; batch 4 at 128^2) on the card and on
     the CPU from the same weights and batch: ``chip_smoke``'s phase 9 check
-    and its tolerances (loss terms rel 1e-4, gradients 1e-3, BN statistics,
-    parameters after the step)."""
+    and its tolerances (loss terms rel 1e-4, gradients within 1e-3 of a
+    float64 evaluation on the CPU, BN statistics, parameters after the
+    step)."""
     import chip_smoke
 
     out = chip_smoke.train_step_card_vs_cpu(dev)
     assert out["loss_rel"] <= 1e-4 and out["grad_rel_max"] <= 1e-3
+
+
+# -- the training input pipeline: the native splat, the device prefetch, a module step -----
+
+def test_native_splat_built_and_matches_plain(dev):
+    """The native splat (a host C++ library built at first use) against its
+    plain NumPy loop at the yaml's heatmap sizes and sigma, 30 persons with
+    joints off the maps and invisible: within 1e-6 (exact on the CPU)."""
+    from human_pose_tpu_torch.data import HeatmapGenerator
+
+    rs = np.random.RandomState(3)
+    for size in (128, 256):
+        gen = HeatmapGenerator(17, size, 2.0)
+        joints = np.stack([rs.randint(-3, size + 3, (30, 17)), rs.randint(-3, size + 3, (30, 17)),
+                           rs.randint(0, 3, (30, 17))], -1).astype(np.int32)
+        assert np.abs(gen(joints) - gen.plain(joints)).max() <= 1e-6
+        assert gen.native_calls == 1
+
+
+def _host_batch(seed: int, compact: bool, n: int = 3, size: int = 64, p: int = 5) -> dict:
+    """A collate-shaped host batch: channel-last images and heatmaps, masks
+    and joints; compact: uint8, float16 and bool."""
+    rs = np.random.RandomState(seed)
+    images = rs.randint(0, 256, (n, size, size, 3)).astype(np.uint8)
+    hms = [rs.rand(n, size // d, size // d, 17).astype(np.float16 if compact else np.float32)
+           for d in (4, 2)]
+    masks = [rs.rand(n, size // d, size // d) > 0.1 for d in (4, 2)]
+    joints = np.stack([rs.randint(0, size // 4, (n, p, 17)), rs.randint(0, size // 4, (n, p, 17)),
+                       rs.randint(0, 2, (n, p, 17))], -1).astype(np.int32)
+    if not compact:
+        images = (images.astype(np.float32) - 128) / 64
+        masks = [m.astype(np.float32) for m in masks]
+    return {"images": images, "heatmaps": hms, "masks": masks, "joints": joints}
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("pin_memory", [False, True])
+def test_prefetched_batch_card_equals_cpu(dev, compact, pin_memory):
+    """Batches through ``DevicePrefetcher`` on the card (side stream, event,
+    ``record_stream``; pinned staging or not) equal the same host batches
+    moved to the CPU layout, bit for bit: NCHW images and heatmaps,
+    contiguous, dtypes kept, on the card, in order."""
+    from human_pose_tpu_torch.train import DeviceBatch, DevicePrefetcher, host_batch_to_device
+
+    batches = [_host_batch(s, compact) for s in range(4)]
+    pf = DevicePrefetcher(batches, lambda b: host_batch_to_device(b, dev, pin_memory=pin_memory),
+                          buffer=2, device=dev)
+    got = []
+    for batch in pf:
+        assert isinstance(batch, DeviceBatch)
+        got.append({k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+                    for k, v in batch.items()})
+        torch.cuda._sleep(1_000_000)  # the next batch's copy overlaps work on the compute stream
+    torch.cuda.synchronize()
+    assert len(got) == len(batches)
+    for g, b in zip(got, batches):
+        want = host_batch_to_device(b, torch.device("cpu"))
+        for key in want:
+            pairs = zip(g[key], want[key]) if isinstance(want[key], list) else [(g[key], want[key])]
+            for t, w in pairs:
+                assert t.device == dev and t.is_contiguous() and t.dtype == w.dtype, key
+                assert torch.equal(t.cpu(), w), key
+
+
+def test_keypoints_module_step_card_equals_cpu(dev):
+    """``KeypointsModule.training_step`` on a channel-last host batch (the
+    module puts it on its device in NCHW) of the reduced HigherHRNet, card
+    against CPU from the same weights, float32 with TF32 off: the loss terms
+    within rel 1e-4, and every gradient within ||card - ref|| / ||ref|| 1e-3
+    of ``ref``, the same gradients in float64 on the CPU (``chip_smoke``'s
+    phase 9 tolerances; the CPU's float32 gradients are not the reference:
+    on this batch they miss float64 by more than the card's);
+    ``validation_step`` before
+    it (eval BatchNorm from the same statistics): metrics within rel 1e-4."""
+    import copy
+
+    from human_pose_tpu_torch.models import HigherHRNet
+    from human_pose_tpu_torch.ops import prep_images
+    from human_pose_tpu_torch.train import KeypointsModule, ae_keypoints_loss, host_batch_to_device
+
+    reduced = dict(num_kpts=17, C=8, num_blocks_per_stage=(1, 1, 1, 1), num_units=1,
+                   num_deconv_resid_blocks=1)
+    cpu = KeypointsModule.create(HigherHRNet(**reduced, device="cpu"), seed=4)
+    card = KeypointsModule.create(copy.deepcopy(cpu.model).to(dev), seed=4)
+    card.model.load_state_dict(cpu.model.state_dict())
+    batch = _host_batch(7, compact=True, n=4, size=128)
+    ref = copy.deepcopy(cpu.model).double().train()
+    nchw = host_batch_to_device(batch, torch.device("cpu"))
+    total, _ = ae_keypoints_loss(*ref(prep_images(nchw["images"]).double()), nchw["heatmaps"],
+                                 nchw["masks"], nchw["joints"])
+    total.backward()
+    for (v_cpu, _), (v_card, _) in [(cpu.validation_step(batch), card.validation_step(batch))]:
+        for key, value in v_cpu.items():
+            assert abs(float(v_card[key]) - float(value)) <= 1e-4 * abs(float(value)), key
+    m_cpu, m_card = cpu.training_step(batch), card.training_step(batch)
+    for key, value in m_cpu.items():
+        assert abs(float(m_card[key]) - float(value)) <= 1e-4 * abs(float(value)), key
+    for (name, r), q in zip(ref.named_parameters(), card.model.parameters()):
+        rel = float((q.grad.cpu().double() - r.grad).norm() / r.grad.norm().clamp(min=1e-30))
+        assert rel <= 1e-3, (name, rel)

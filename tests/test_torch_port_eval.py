@@ -216,14 +216,18 @@ def test_dataset_matches_jax(coco_roots):
 
 
 def test_dataset_training_side_refuses(coco_roots):
+    """The training side (ported since; tests/test_torch_port_data.py holds
+    it against JAX) refuses what JAX's refuses: a compact dataset whose
+    transform gives a float image, and an empty batch."""
+    from human_pose_tpu_torch.data import KeypointsTransform
+
     port_root, _ = coco_roots
-    with pytest.raises(NotImplementedError, match="module 10"):
-        CocoKeypointsDataset(str(port_root), "val2017", transform=lambda *a: a)
-    ds = CocoKeypointsDataset(str(port_root), "val2017")
-    for call in (lambda: ds[0], lambda: ds.get_raw_mosaiced_data(0, np.random.default_rng(0)),
-                 lambda: collate([])):
-        with pytest.raises(NotImplementedError, match="module 10"):
-            call()
+    ds = CocoKeypointsDataset(str(port_root), "val2017", KeypointsTransform(64).inference,
+                              out_size=64, compact=True)
+    with pytest.raises(ValueError, match="uint8"):
+        ds.__getitem__(0, np.random.default_rng(0))
+    with pytest.raises(IndexError):
+        collate([])
 
 
 @pytest.mark.parametrize("path,fallback", [
@@ -338,9 +342,9 @@ def test_deterministic_and_cudnn_section():
 
 def test_config_refusals():
     cfg = KeypointsConfig.from_dict({"trainer": {"accelerator": "cpu"}})
-    for call, module in ((cfg.create_datamodule, 10), (cfg.create_module, 10),
-                         (cfg.create_callbacks, 10), (cfg.create_trainer, 10),
-                         (cfg.create_logger, 16), (cfg.make_mesh, 14), (cfg.bn_groups, 14),
+    for call, module in ((cfg.create_callbacks, "10d"), (cfg.create_trainer, "10d"),
+                         (cfg.create_logger, 16), (cfg.make_mesh, 14),
+                         (lambda: cfg.bn_groups(mesh=object()), 14),
                          (lambda: cfg.create_net(bn_groups=2), 14)):
         with pytest.raises(NotImplementedError, match=f"module {module}"):
             call()

@@ -472,6 +472,36 @@ def test_batch_norm_eval_mode_is_batchnorm2d():
     assert bool(torch.isfinite(y.float()).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float64])
+def test_batch_norm_parameter_gradients_in_at_least_float32(dtype):
+    """The weight's and the bias's gradients of a train-mode BatchNorm on a
+    reduced-precision x (bf16, fp16) are float32 sums, as in JAX's bf16
+    step: within 1e-5 of their scale against a float64 evaluation of the
+    same formulas on the same values (one low-precision rounding would be
+    ~2**-9); grad_x keeps x's dtype. A float64 x keeps float64 moments and
+    gradients (within 1e-12), so a float64 copy of a model is a reference."""
+    gen = torch.Generator().manual_seed(6)
+    x = (torch.randn((4, 8, 9, 7), generator=gen) * (0.2 + 2 * torch.rand((1, 8, 1, 1), generator=gen))
+         + torch.randn((1, 8, 1, 1), generator=gen)).to(dtype)
+    gy = torch.randn(x.shape, generator=gen).to(dtype)
+    m = batch_norm(8).to(torch.float64 if dtype == torch.float64 else torch.float32).train()
+    with torch.no_grad():
+        m.weight.copy_(torch.linspace(0.5, 1.5, 8))
+        m.bias.copy_(torch.linspace(-0.2, 0.2, 8))
+    xx = x.detach().requires_grad_()
+    m(xx).backward(gy)
+    assert xx.grad.dtype == dtype and m.weight.grad.dtype == m.weight.dtype
+    x64, gy64, c = x.double(), gy.double(), (None, slice(None), None, None)
+    var = x64.var((0, 2, 3), unbiased=False)
+    xhat = (x64 - x64.mean((0, 2, 3))[c]) / (var + 1e-5).sqrt()[c]
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for got, want in ((m.weight.grad, (gy64 * xhat).sum((0, 2, 3))), (m.bias.grad, gy64.sum((0, 2, 3)))):
+        assert float((got.double() - want).abs().max()) <= tol * float(want.abs().max())
+    if dtype == torch.float64:
+        assert m.running_var.dtype == torch.float64
+        assert float((m.running_var - (0.9 + 0.1 * var)).abs().max()) <= 1e-12
+
+
 def test_init_keypoints_weights():
     """Every conv and transposed-conv kernel drawn from N(0, 0.001) (each
     tensor's std within 10% for 500+ draws, mean within 5 standard errors),
