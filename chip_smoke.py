@@ -9,6 +9,7 @@
     python3 chip_smoke.py --eval-only          # the COCO evaluation phase alone, see the end
     python3 chip_smoke.py --train-only         # the training phase alone, see the end
     python3 chip_smoke.py --train-data-only    # the training input pipeline alone, see the end
+    python3 chip_smoke.py --train-engine-only  # the training engine alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -90,6 +91,17 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    share; ``validation_step`` and ``make_results`` with one launch each of
    the dense refine and the grouping; the reduced net's step on one loader
    batch card vs CPU
+11. the training engine (``train_engine_phase``): W32 from the yaml (batch
+   36, 512^2, bfloat16, Adam) through ``bin.train_keypoints.main`` on phase
+   10's synthesized directories for two epochs: FINISHED, best.pt and
+   last.pt, the epoch metrics' files, the model summary (28,645,331), the
+   device log and the tracker's files; one launch of the dense refine and
+   of the grouping an evaluate (counters zeroed before the run); the resume
+   from last.pt runs one epoch and continues the step count; last.pt loads
+   strictly into ``InferenceKeypointsModel`` and decodes a val image; ms a
+   step through the ``Trainer`` beside phase 10's steady step, the step
+   after a checkpoint submit, each save's seconds and size; the reduced
+   net's engine run card vs CPU
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
@@ -130,7 +142,9 @@ alone on the W32 model; it prints the phase's record as one JSON object
 last (no ``ok`` line). ``--eval-only`` does the same for phase 8,
 ``--train-only`` for phase 9 (which builds no kernel) and
 ``--train-data-only`` for phase 10 (which builds the dense refine and the
-grouping for its validation).
+grouping for its validation) and ``--train-engine-only`` for phase 11 (the
+same two kernels; without phase 10 in the process it measures phase 10's
+steady step itself).
 """
 
 from __future__ import annotations
@@ -2187,6 +2201,380 @@ def train_data_only(dev, smi: str) -> int:
     return 0
 
 
+TRAIN_ENGINE_EPOCHS = 2  # the W32 run through the CLI; the resume runs one more
+TRAIN_ENGINE_REPEAT = 4  # the timing run's epoch: the training set 4x, 8 steps
+TRAIN_ENGINE_SKIP = 2  # its first steps, not steady
+TRAIN_ENGINE_CARD_STEPS = 4  # steps on a batch made on the card around a submit
+# the reduced engine run card vs CPU, with the yaml's Adam and with SGD
+# (momentum 0.9, lr 0.01): the first step's loss terms within rel 1e-4
+# (phase 9's) for both; SGD's later steps and epoch means within 1e-3 of the
+# larger of the term and the loss. Summation order alone moves this run's
+# later losses: two CPU runs that differ only in torch's thread count drift
+# by 9.3e-5 of the loss by the fourth step with SGD and by 1.1e-3 with Adam
+# on phase 11's corpus (the drift grows 25x in the fourth step; an
+# 8-core x86 CPU); an NVIDIA H100 80GB HBM3 at 700 W read 4.5e-4 with SGD
+# and 6.5e-2 with Adam. Adam's later steps are read, not held: its update
+# lr * m / (sqrt(v) + 1e-8) moves a weight by ~lr whatever its gradient's
+# size, and the keypoints init's weights are N(0, 0.001)
+ENGINE_FIRST_RTOL, ENGINE_SGD_RTOL = 1e-4, 1e-3
+ENGINE_SGD = ("--module.optimizers.optim.name=SGD", "--module.optimizers.optim.params.lr=0.01",
+              "--module.optimizers.optim.params.momentum=0.9")
+ENGINE_REDUCED = ("--net.params.C=8", "--net.params.num_blocks_per_stage=[1,1,1,1]",
+                  "--net.params.num_units=1", "--net.params.num_deconv_resid_blocks=1",
+                  f"--dataloader.batch_size={TRAIN_REDUCED_BATCH}",
+                  f"--dataloader.train_ds.out_size={TRAIN_REDUCED_SIZE}",
+                  f"--dataloader.val_ds.out_size={TRAIN_REDUCED_SIZE}",
+                  f"--transform.out_size={TRAIN_REDUCED_SIZE}", "--trainer.limit_batches=2",
+                  "--trainer.max_epochs=2", "--cudnn.enabled=false")
+
+
+class EngineProbe:
+    """While active: each ``Trainer.evaluate``'s epoch and the kernel
+    launches it made (from ``counters``), each ``AsyncCheckpointWriter.submit``'s
+    caller-thread ms, and each checkpoint write's seconds and bytes (the
+    writer thread's ``_write``). The working directory is ``workdir`` (where
+    ``results/`` lands); at the end the file log handlers a run added are
+    closed and the cuDNN switches it applied are restored."""
+
+    def __init__(self, workdir: Path, counters: dict | None = None):
+        self.workdir, self.counters = workdir, counters or {}
+        self.evaluates, self.submits_ms, self.writes = [], [], []
+
+    def __enter__(self):
+        from human_pose_tpu_torch.loggers.pylogger import log as port_log
+        from human_pose_tpu_torch.train import checkpoint, trainer
+
+        import torch
+
+        cudnn = torch.backends.cudnn
+        self._cudnn = (cudnn.benchmark, cudnn.deterministic, cudnn.enabled)
+        self._saved = (os.getcwd(), list(port_log.handlers), trainer.Trainer.evaluate,
+                       checkpoint.AsyncCheckpointWriter.submit, checkpoint._write)
+        cwd, _, evaluate, submit, write = self._saved
+        probe = self
+
+        def counted_evaluate(tr, *args, **kwargs):
+            before = {k: w.launches for k, w in probe.counters.items()}
+            out = evaluate(tr, *args, **kwargs)
+            if probe.counters:
+                import torch
+
+                torch.cuda.synchronize()
+            probe.evaluates.append((tr.current_epoch, {k: w.launches - before[k]
+                                                       for k, w in probe.counters.items()}))
+            return out
+
+        def timed_submit(writer, *args, **kwargs):
+            t0 = time.perf_counter()
+            submit(writer, *args, **kwargs)
+            probe.submits_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def timed_write(path, *args, **kwargs):
+            t0 = time.perf_counter()
+            write(path, *args, **kwargs)
+            probe.writes.append((Path(path).name, time.perf_counter() - t0, Path(path).stat().st_size))
+
+        trainer.Trainer.evaluate = counted_evaluate
+        checkpoint.AsyncCheckpointWriter.submit = timed_submit
+        checkpoint._write = timed_write
+        os.chdir(self.workdir)
+        return self
+
+    def __exit__(self, *exc):
+        from human_pose_tpu_torch.loggers.pylogger import log as port_log
+        from human_pose_tpu_torch.train import checkpoint, trainer
+
+        import torch
+
+        cudnn = torch.backends.cudnn
+        cudnn.benchmark, cudnn.deterministic, cudnn.enabled = self._cudnn  # the CLI applies the yaml's
+        cwd, handlers, evaluate, submit, write = self._saved
+        os.chdir(cwd)
+        trainer.Trainer.evaluate = evaluate
+        checkpoint.AsyncCheckpointWriter.submit = submit
+        checkpoint._write = write
+        for h in [h for h in port_log.handlers if h not in handlers]:
+            port_log.removeHandler(h)
+            h.close()
+        return False
+
+
+def engine_losses(tr) -> dict:
+    """Per-step train losses and the epoch means of a trainer's storage."""
+    epochs = tr.storage.aggregate_over_key("epoch").metrics
+    return {"steps": {k: [r["value"] for r in v["train"]] for k, v in tr.storage.metrics.items()},
+            "epochs": {k: {s: [r["value"] for r in recs] for s, recs in v.items()}
+                       for k, v in epochs.items()}}
+
+
+def engine_card_vs_cpu(dev, yaml_path: str, roots: list, workdir: Path) -> dict:
+    """The reduced net (C=8, 128^2, batch 4, two epochs of two batches and
+    two val batches, float32, cuDNN off as phase 10 holds the step) trained
+    through ``bin.train_keypoints.main`` on the card and on the CPU from the
+    same seeded weights and the same loader batches, with the yaml's Adam
+    and with SGD (``ENGINE_SGD``): the largest relative difference of the
+    first step's loss terms, and of every later step's terms and every epoch
+    mean (train and val) as a share of the larger of the term and the loss.
+    Holds both first steps within ``ENGINE_FIRST_RTOL`` and SGD's later
+    steps and means within ``ENGINE_SGD_RTOL``; Adam's later steps are read
+    (see ``ENGINE_SGD_RTOL``'s comment). Raises on a miss; returns the
+    errors."""
+    from human_pose_tpu_torch.bin import train_keypoints
+
+    out = {}
+    for opt, opt_argv in (("adam", ()), ("sgd", ENGINE_SGD)):
+        runs = {}
+        for where in ("gpu", "cpu"):
+            (workdir / opt / where).mkdir(parents=True, exist_ok=True)
+            with EngineProbe(workdir / opt / where):
+                tr = train_keypoints.main([f"--config={yaml_path}", *roots,
+                                           "--setup.pretrained_ckpt_path=null", *ENGINE_REDUCED,
+                                           *opt_argv, f"--trainer.accelerator={where}"])
+            if tr.module.device.type != (dev.type if where == "gpu" else "cpu"):
+                raise AssertionError(f"engine card vs CPU: the {where} run ran on {tr.module.device}")
+            runs[where] = engine_losses(tr)
+        card, cpu = runs["gpu"], runs["cpu"]
+        rec = {"first_rel": 0.0, "later_rel_of_scale": 0.0, "epochs_rel_of_scale": 0.0,
+               "loss_card": card["steps"]["loss"], "loss_cpu": cpu["steps"]["loss"]}
+        for key, want in cpu["steps"].items():
+            got = card["steps"][key]
+            if len(got) != len(want) or len(want) != 4:
+                raise AssertionError(f"engine card vs CPU ({opt}): {key} steps {len(got)} vs {len(want)}")
+            rec["first_rel"] = max(rec["first_rel"], abs(got[0] - want[0]) / max(abs(want[0]), 1e-30))
+            for g, w, loss in list(zip(got, want, cpu["steps"]["loss"]))[1:]:
+                rec["later_rel_of_scale"] = max(rec["later_rel_of_scale"], abs(g - w) / max(abs(w), loss))
+            for split, values in cpu["epochs"][key].items():
+                for g, w, loss in zip(card["epochs"][key][split], values, cpu["epochs"]["loss"][split]):
+                    rec["epochs_rel_of_scale"] = max(rec["epochs_rel_of_scale"],
+                                                     abs(g - w) / max(abs(w), loss))
+        out[opt] = rec
+        log(f"engine card vs CPU, {opt} (C=8, {TRAIN_REDUCED_SIZE}^2, batch {TRAIN_REDUCED_BATCH}, 2 epochs "
+            f"of 2 batches, float32, TF32 and cuDNN off): " + ", ".join(f"{k} {v}" for k, v in rec.items()))
+    if not (out["adam"]["first_rel"] <= ENGINE_FIRST_RTOL and out["sgd"]["first_rel"] <= ENGINE_FIRST_RTOL
+            and out["sgd"]["later_rel_of_scale"] <= ENGINE_SGD_RTOL
+            and out["sgd"]["epochs_rel_of_scale"] <= ENGINE_SGD_RTOL):
+        raise AssertionError(f"engine card vs CPU: {out}")
+    return out
+
+
+def summary_txt_total(path: Path) -> int:
+    return int(path.read_text().splitlines()[-1].split()[-1].replace(",", ""))
+
+
+def train_engine_phase(dev, counted, smi: str, phase10: dict | None = None) -> dict:
+    """Phase 11: the training engine on the card. (a) a synthesized
+    ``train2017`` (72 images, two batches of 36) and ``val2017`` (12) as
+    phase 10's; (b) W32 from ``TRAIN_YAML`` (batch 36, 512^2, bfloat16, Adam)
+    through ``bin.train_keypoints.main`` for ``TRAIN_ENGINE_EPOCHS`` epochs
+    in a temporary working directory, the pretrained path null: FINISHED in
+    the tracker, best.pt, last.pt, the epoch metrics' yaml, html and jpg,
+    the model summary (TOTAL 28,645,331), the device log and the tracker's
+    metrics files; with the launch counters zeroed before the run, each
+    evaluate launches the dense refine and the grouping once; each
+    checkpoint's submit ms, write seconds and size; (c) the resume from
+    last.pt to one more epoch: that epoch only, the step count continued;
+    (d) the last.pt strictly into ``InferenceKeypointsModel``, one val image
+    decoded; (e) a timing run through the ``Trainer`` (the training set
+    ``TRAIN_ENGINE_REPEAT`` times in one epoch): ms between step launches,
+    median of the steady steps, beside phase 10's steady step (``phase10``
+    when it ran in this process, else measured here); the step right after a
+    checkpoint submit against steps on a batch made on the card; (f) the
+    reduced run card vs CPU with Adam and with SGD (``engine_card_vs_cpu``).
+    Raises on a failed check."""
+    import tempfile
+
+    import torch
+
+    from human_pose_tpu_torch.bin import train_keypoints
+    from human_pose_tpu_torch.configs import KeypointsConfig
+    from human_pose_tpu_torch.data import DataLoader, collate
+    from human_pose_tpu_torch.train import DeviceBatch, checkpoint
+
+    rng = np.random.default_rng(SEED + 11)
+    out = {"card": smi}
+    yaml_path = str(Path(__file__).resolve().parent / TRAIN_YAML)
+    counters = {k: w for k, w in kernel_counters().items() if k in ("match_by_tag", "refine_argmax")}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "coco"
+        out["corpus"] = {
+            split: make_eval_corpus(root, rng, split, n, TRAIN_DATA_PERSONS, TRAIN_DATA_CROWD_EVERY)
+            for split, n in (("train2017", TRAIN_DATA_N_IMAGES), ("val2017", TRAIN_DATA_N_VAL))}
+        roots = [f"--dataloader.train_ds.root={root}", f"--dataloader.val_ds.root={root}"]
+        argv = [f"--config={yaml_path}", *roots, "--setup.pretrained_ckpt_path=null"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        # (b) the W32 run
+        work = tmp / "w32"
+        work.mkdir()
+        t0 = time.perf_counter()
+        with EngineProbe(work, counters) as probe:
+            tr, launches = counted(
+                lambda: train_keypoints.main([*argv, f"--trainer.max_epochs={TRAIN_ENGINE_EPOCHS}"]),
+                f"phase 11 (the W32 run: {TRAIN_ENGINE_EPOCHS} epochs, an evaluate each)",
+                {"match_by_tag": TRAIN_ENGINE_EPOCHS, "refine_argmax": TRAIN_ENGINE_EPOCHS})
+        run_s = time.perf_counter() - t0
+        run_dir = work / tr.log_path
+        n_params = sum(p.numel() for p in tr.module.model.parameters())
+        status = json.loads((run_dir / "tracker" / "run.json").read_text())["status"]
+        files = ["checkpoints/best.pt", "checkpoints/last.pt", "epoch_metrics.yaml", "epoch_metrics.html",
+                 "epoch_metrics.jpg", "model/model_summary.txt", "logs/device_0.log",
+                 "tracker/metrics_train.jsonl", "tracker/metrics_val.jsonl", "tracker/run.json",
+                 "config.yaml"]
+        missing = [f for f in files if not (run_dir / f).is_file()]
+        total = summary_txt_total(run_dir / "model" / "model_summary.txt")
+        per_eval = [c for _, c in probe.evaluates]
+        if (status != "FINISHED" or missing or total != W32_PARAMS or n_params != W32_PARAMS
+                or tr.module.device != dev or tr.module.state.dtype != torch.bfloat16
+                or per_eval != [{"match_by_tag": 1, "refine_argmax": 1}] * TRAIN_ENGINE_EPOCHS
+                or tr.current_step != 2 * TRAIN_ENGINE_EPOCHS):
+            raise AssertionError(f"train engine W32 run: status {status}, missing {missing}, TOTAL {total}, "
+                                 f"{n_params} parameters on {tr.module.device} {tr.module.state.dtype}, "
+                                 f"launches an evaluate {per_eval}, steps {tr.current_step}")
+        losses = engine_losses(tr)
+        if not all(np.isfinite(v) for k in losses["steps"].values() for v in k):
+            raise AssertionError(f"train engine W32 run: non-finite losses {losses['steps']}")
+        last = run_dir / "checkpoints" / "last.pt"
+        saved = checkpoint.load_checkpoint(last)
+        out["w32_run"] = {
+            "seconds": run_s, "status": status, "steps": tr.current_step, "params": n_params,
+            "summary_total": total, "dtype": "bfloat16", "launches": launches,
+            "launches_an_evaluate": per_eval, "loss_steps": losses["steps"]["loss"],
+            "val_loss_epochs": losses["epochs"]["loss"]["val"],
+            "saves": [{"file": f, "write_s": s, "mb": b / 1e6, "submit_ms": ms}
+                      for (f, s, b), ms in zip(probe.writes, probe.submits_ms)],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "last_pt": {"epoch": saved["epoch"], "step": saved["step"]}}
+        log(f"train engine W32 run ({TRAIN_ENGINE_EPOCHS} epochs of 2 batches of 36 at 512^2, bfloat16, Adam): "
+            f"{run_s:.1f}s, FINISHED, {tr.current_step} steps, loss a step "
+            f"{[round(v, 6) for v in out['w32_run']['loss_steps']]}, launches an evaluate {per_eval}; saves "
+            + ", ".join(f"{r['file']} submit {r['submit_ms']:.1f} ms, write {r['write_s']:.2f}s, {r['mb']:.1f} MB"
+                        for r in out["w32_run"]["saves"]) + f"  [{smi}]")
+        del tr
+        torch.cuda.empty_cache()
+
+        # (c) the resume
+        with EngineProbe(work, counters) as probe:
+            tr = train_keypoints.main([*argv, f"--setup.ckpt_path={last.resolve()}",
+                                       f"--trainer.max_epochs={TRAIN_ENGINE_EPOCHS + 1}"])
+        epochs = [e for e, _ in probe.evaluates]
+        if epochs != [TRAIN_ENGINE_EPOCHS] or tr.current_step != saved["step"] + 2:
+            raise AssertionError(f"train engine resume: evaluated epochs {epochs}, step {tr.current_step} "
+                                 f"after {saved['step']}")
+        out["resume"] = {"from_step": saved["step"], "epochs_run": epochs, "step": tr.current_step,
+                         "loss_steps": engine_losses(tr)["steps"]["loss"][-2:]}
+        log(f"train engine resume: {out['resume']}")
+        last = work / tr.log_path / "checkpoints" / "last.pt"
+        del tr
+        torch.cuda.empty_cache()
+
+        # (d) inference from the run's last.pt
+        cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(yaml_path, roots))
+        model = cfg.create_inference_model(ckpt_path=str(last))
+        ds = cfg.create_datamodule().val_ds
+        result = model(ds.load_image(0))
+        det = result.to_coco_detections(0)
+        if not all(np.isfinite(np.asarray(a, np.float32)).all()
+                   for a in (result.kpts_coords, result.kpts_scores, result.obj_scores)):
+            raise AssertionError("train engine: non-finite inference from last.pt")
+        out["inference"] = {"persons": len(result.obj_scores), "detections": len(det),
+                            "dtype": str(model.dtype).split(".")[-1]}
+        log(f"train engine: last.pt -> InferenceKeypointsModel (strict load), one val image: {out['inference']}")
+        del model
+
+        # (e) the timing run through the Trainer
+        cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(
+            yaml_path, [*roots, "--setup.pretrained_ckpt_path=null", "--trainer.max_epochs=1"]))
+        work = tmp / "timing"
+        work.mkdir()
+        with EngineProbe(work) as probe:
+            cfg.initialize_logging()
+            cfg.apply_cudnn()
+            dm = cfg.create_datamodule()
+            dl = dm.train_dl
+            dm.train_dl = DataLoader(Repeated(dm.train_ds, TRAIN_ENGINE_REPEAT), dl.batch_size, collate,
+                                     num_workers=dl.num_workers, seed=dl.seed)
+            module = cfg.create_module()
+            tr = cfg.create_trainer()
+            stamps, step = [], module.training_step
+
+            def stamped(batch):
+                stamps.append(time.perf_counter())
+                return step(batch)
+
+            module.training_step = stamped
+            tr.fit(module, dm)
+            gaps = np.diff(stamps) * 1e3
+            steady = gaps[TRAIN_ENGINE_SKIP - 1:]
+            rec = {"steps": len(stamps), "ms": float(np.median(steady)), "ms_min": float(steady.min()),
+                   "ms_max": float(steady.max()), "gaps_ms": gaps.tolist()}
+            if phase10 is None:
+                phase10 = {"bfloat16": train_data_steps(dev, cfg, smi)[0]}
+                rec["phase10_source"] = "measured in this phase"
+            else:
+                rec["phase10_source"] = "phase 10 in this process"
+            p10 = phase10["bfloat16"]["steady"]
+            rec.update(phase10_steady_ms=p10["ms"], engine_overhead_ms=rec["ms"] - p10["ms"])
+            # the writer's cost: steps on a batch made on the card around one submit
+            module.training_step = step
+            batch = DeviceBatch(train_batch(cfg.dataloader.batch_size, cfg.dataloader.train_ds.out_size,
+                                            cfg.dataloader.train_ds.max_num_people,
+                                            torch.Generator(device=dev).manual_seed(SEED), dev))
+
+            def synced_step():
+                module.training_step(batch)
+                torch.cuda.synchronize()
+
+            synced_step()
+            card_ms = [host_ms(synced_step) for _ in range(TRAIN_ENGINE_CARD_STEPS)]
+            path = work / "submit.pt"
+            t0 = time.perf_counter()
+            tr.save_checkpoint(path)
+            submit_ms = (time.perf_counter() - t0) * 1e3
+            after_ms = host_ms(synced_step)
+            t1 = time.perf_counter()
+            tr._ckpt_writer.wait()
+            join_s = time.perf_counter() - t1
+            t2 = time.perf_counter()
+            checkpoint.save_checkpoint(work / "sync.pt", module.state, 0,
+                                       lr_schedulers=module.schedulers_state_dict())
+            sync_s = time.perf_counter() - t2
+            rec["writer"] = {"card_step_ms": float(np.median(card_ms)), "card_step_ms_all": card_ms,
+                             "submit_ms": submit_ms, "step_after_submit_ms": after_ms,
+                             "join_after_step_s": join_s, "sync_save_s": sync_s,
+                             "mb": path.stat().st_size / 1e6}
+        out["timing"] = rec
+        w = rec["writer"]
+        log(f"train engine timing (one epoch of {rec['steps']} steps through the Trainer, W32 bfloat16 bs36 "
+            f"512^2 from the loader): {rec['ms']:.1f} ms a step between launches (median of "
+            f"{len(steady)} steady; {rec['ms_min']:.1f}-{rec['ms_max']:.1f}) vs phase 10's steady "
+            f"{rec['phase10_steady_ms']:.1f} ms ({rec['phase10_source']}): engine overhead "
+            f"{rec['engine_overhead_ms']:.1f} ms; on a card batch {w['card_step_ms']:.1f} ms a step, "
+            f"submit {w['submit_ms']:.1f} ms, the step after it {w['step_after_submit_ms']:.1f} ms, the "
+            f"write joined {w['join_after_step_s']:.2f}s after; a synchronous save {w['sync_save_s']:.2f}s, "
+            f"{w['mb']:.1f} MB  [{smi}]")
+        del tr, module, dm
+        torch.cuda.empty_cache()
+
+        # (f) the reduced run, card vs CPU
+        out["card_vs_cpu"] = engine_card_vs_cpu(dev, yaml_path, roots, tmp / "reduced")
+    out["launches"] = out["w32_run"]["launches"]
+    return out
+
+
+def train_engine_only(dev, smi: str) -> int:
+    """Phase 11 alone: build the dense refine and the grouping (the
+    validation's decode), then the training engine's phase. Prints the
+    phase's record as one JSON object last."""
+    from human_pose_tpu_torch.ops import _build
+
+    log(f"build: per kernel {_build.build_kernels(('refine_argmax', 'match_by_tag'))}")
+    counted = make_counted(kernel_counters())
+    print(json.dumps({"train_engine": train_engine_phase(dev, counted, smi)}), flush=True)
+    return 0
+
+
 def refine_only(dev, rng, smi: str) -> int:
     """The short loop for the dense refine: build, SASS counts, parity, then
     its time on the main path's and the dense scene's inputs and over a
@@ -2468,6 +2856,10 @@ def main() -> int:
     parser.add_argument("--train-data-only", action="store_true",
                         help="build the decode's kernels and run the training input pipeline's "
                              "phase alone")
+    parser.add_argument("--train-engine-only", action="store_true",
+                        help="build the decode's kernels and run the training engine's phase alone "
+                             "(the W32 run through the training CLI, its resume, inference from its "
+                             "last.pt, the engine's timing, the reduced run card vs CPU)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -2517,6 +2909,8 @@ def main() -> int:
         return train_only(dev, smi)
     if args.train_data_only:
         return train_data_only(dev, smi)
+    if args.train_engine_only:
+        return train_engine_only(dev, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -2738,6 +3132,9 @@ def main() -> int:
     # 10. the training input pipeline
     train_data_rec = train_data_phase(dev, counted, smi, train_rec)
 
+    # 11. the training engine
+    train_engine_rec = train_engine_phase(dev, counted, smi, train_data_rec)
+
     # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
     dense_in = record_kernel_inputs(decode_dense)
@@ -2747,7 +3144,8 @@ def main() -> int:
              "w32_blocks": launches_blocks,
              **{f"infer_{key}": rec["launches"] for key, rec in infer_rec["configs"].items()},
              **{f"eval_bs{bs}": c for bs, c in eval_rec["launches"].items()},
-             "train_data_val": train_data_rec["launches"]}
+             "train_data_val": train_data_rec["launches"],
+             "train_engine": train_engine_rec["launches"]}
 
     def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
         return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
@@ -2861,6 +3259,7 @@ def main() -> int:
     print(json.dumps({"eval": eval_rec}), flush=True)
     print(json.dumps({"train": train_rec}), flush=True)
     print(json.dumps({"train_data": train_data_rec}), flush=True)
+    print(json.dumps({"train_engine": train_engine_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

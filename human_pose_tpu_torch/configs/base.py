@@ -6,10 +6,9 @@ dataclasses, their fields and defaults are the JAX package's, so one yaml
 and one argv structure into the same config in both packages. Debug-mode
 rename (limit_batches > 0 -> experiment "debug"), ``ckpt_path: auto`` and
 the run-dir layout ``results/<exp>/<run>/<timestamp>`` are kept. The
-keypoints config builds the training datamodule and module; the callbacks,
-the trainer and the run's file logging come with the training engine
-(ROADMAP module 10d), the logger with module 16, the mesh and more than one
-BatchNorm group with module 14, and raise until then.
+keypoints config builds the training datamodule and module, the callbacks,
+the logger and the trainer, and sets up the run's file logging; the mesh and
+more than one BatchNorm group come with module 14 and raise until then.
 """
 
 from __future__ import annotations
@@ -22,9 +21,10 @@ from typing import Any
 
 import torch
 
-from ..loggers.pylogger import log
+from ..loggers.loggers import FileTrackerLogger, Loggers, MlflowFileLogger, TerminalLogger
+from ..loggers.pylogger import add_file_handler, log, set_device_tag
 from ..utils.files import load_yaml
-from ..utils.utils import get_rank, seed_everything
+from ..utils.utils import get_rank, is_main_process, process_count, seed_everything
 from .cli import update_config
 from .structured import structure, unstructure
 
@@ -47,14 +47,6 @@ def find_last_checkpoint(experiment_dir: Path, run_name: str | None = None):
 
 def _not_ported(what: str, module, name: str) -> NotImplementedError:
     return NotImplementedError(f"{what} comes with the port's {name}, ROADMAP module {module}")
-
-
-def process_count() -> int:
-    """The world size of ``torch.distributed``'s process group, or 1 when
-    none is initialized."""
-    import torch.distributed as dist
-
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def _device_count(accelerator: str) -> int:
@@ -111,11 +103,17 @@ class TrainerConfig:
     use_DDP: bool = True
     sync_batchnorm: bool = False
     use_compile: bool = False
-    # the trainer's fields below are read by the port's trainer (module 10d)
+    # "flax" (the JAX package's single file) is one torch.save file here;
+    # "orbax" (a directory backend) is ROADMAP module 16 and refuses
     ckpt_backend: str = "flax"
+    # a torch.profiler trace of a few early training steps into this
+    # directory (utils/profiling.py)
     profile_dir: str | None = None
     profile_steps: int = 5
+    # batches staged on the device ahead of the running step
+    # (train/prefetch.DevicePrefetcher); 0 disables
     device_prefetch: int = 1
+    # checkpoint writes on a background thread (one process)
     async_ckpt: bool = True
 
 
@@ -258,6 +256,17 @@ class BaseConfig:
         return int(pm)
 
     # -- runtime helpers --------------------------------------------------------
+    def initialize_logging(self) -> None:
+        """Tag the console log with the device (``GPU:{rank}`` on the card,
+        ``CPU:{rank}`` on the CPU) and add this process's file log
+        ``logs/device_{rank}.log`` in the run directory."""
+        rank = get_rank()
+        tag = f"{'CPU' if self.trainer.accelerator == 'cpu' else 'GPU'}:{rank}"
+        set_device_tag(log, tag)
+        if is_main_process():
+            self.log_path.mkdir(parents=True, exist_ok=True)
+        add_file_handler(log, self.log_path / "logs" / f"device_{rank}.log", tag)
+
     def apply_cudnn(self) -> None:
         """Set ``torch.backends.cudnn`` from the ``cudnn`` section, as the
         reference does; ``setup.deterministic`` keeps cuDNN deterministic
@@ -304,11 +313,37 @@ class BaseConfig:
         raise NotImplementedError
 
     def create_callbacks(self) -> list:
-        raise _not_ported("create_callbacks", "10d", "training engine")
+        from ..train.callbacks import default_callbacks
 
-    def create_logger(self):
-        raise _not_ported("create_logger (the run's trackers, loggers/loggers.py)", 16,
-                          "utilities and observability")
+        return default_callbacks()
 
-    def create_trainer(self, logger=None):
-        raise _not_ported("create_trainer", "10d", "training engine")
+    def create_logger(self) -> Loggers:
+        tracker_cls = MlflowFileLogger if self.setup.tracker == "mlflow" else FileTrackerLogger
+        return Loggers(
+            [TerminalLogger(self.log_path),
+             tracker_cls(self.log_path, self.setup.experiment_name, str(self.setup.run_name))],
+            self.log_path,
+        )
+
+    def create_trainer(self, logger: Loggers | None = None):
+        """The ``Trainer`` from the ``trainer`` section with the default
+        callbacks; the config is logged to the run directory. The orbax
+        checkpoint backend refuses here, before any run starts."""
+        from ..train.checkpoint import check_ckpt_backend
+        from ..train.trainer import Trainer
+
+        check_ckpt_backend(self.trainer.ckpt_backend)
+        logger = logger if logger is not None else self.create_logger()
+        logger.log_config(self.to_dict())
+        return Trainer(
+            logger=logger,
+            callbacks=self.create_callbacks(),
+            max_epochs=self.trainer.max_epochs,
+            limit_batches=self.trainer.limit_batches,
+            log_path=self.log_path,
+            ckpt_backend=self.trainer.ckpt_backend,
+            profile_dir=self.trainer.profile_dir,
+            profile_steps=self.trainer.profile_steps,
+            device_prefetch=self.trainer.device_prefetch,
+            async_ckpt=self.trainer.async_ckpt,
+        )

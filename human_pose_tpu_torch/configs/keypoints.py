@@ -13,9 +13,9 @@ from ..loggers.pylogger import log
 from .base import BaseConfig, TransformConfig, process_count
 
 ARCHITECTURES = ("HigherHRNet", "Hourglass", "SimpleBaseline", "HRNet")
-# the JAX model's layout (space-to-depth) and rematerialization switches:
-# the same parameters and the same forward, so the port drops them
-JAX_ONLY_NET_PARAMS = ("s2d", "remat")
+# the JAX model's layout switch (space-to-depth, a TPU lane packing): the
+# same parameters and the same forward, so the port drops it
+JAX_ONLY_NET_PARAMS = ("s2d",)
 
 
 @dataclass

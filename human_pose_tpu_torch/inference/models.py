@@ -11,7 +11,6 @@ receives what the result object needs.
 
 from __future__ import annotations
 
-import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -27,7 +26,7 @@ from ..ops.decode import decode_batch
 from ..ops.flip import flip_back, merge_flip_heatmaps
 from ..ops.heatmaps import average_stages, resize_bilinear
 from ..ops.images import prep_images
-from ..utils.weights import load_flax_npz, strip_torch_prefixes
+from ..utils.weights import read_state_dict
 from .results import InferenceKeypointsResult
 
 
@@ -37,26 +36,14 @@ def load_inference_weights(path: str | Path) -> dict[str, torch.Tensor]:
 
     * a flax npz (flat ``params/...``/``batch_stats/...``; ``load_flax_npz``);
     * a reference ``.pt``: a bare state dict or the trainer-state layout
-      ``{"module": {"model": state_dict, ...}, ...}``, prefixes stripped.
+      ``{"module": {"model": state_dict, ...}, ...}``, prefixes stripped;
+      the port's own ``best.pt`` and ``last.pt`` are in that layout.
 
-    A native JAX trainer checkpoint (a pickle around flax msgpack) raises:
-    it loads with the port's training (ROADMAP module 10)."""
-    path = Path(path)
-    if not zipfile.is_zipfile(path):
-        raise ValueError(f"{path} is neither an npz nor a torch zip checkpoint; native JAX "
-                         "trainer checkpoints (flax msgpack) load with the port's training, "
-                         "ROADMAP module 10")
-    with zipfile.ZipFile(path) as z:
-        is_npz = all(name.endswith(".npy") for name in z.namelist())
-    if is_npz:
-        return {k: torch.from_numpy(v) for k, v in load_flax_npz(path).items()}
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(ckpt, dict) and isinstance(ckpt.get("module"), dict):
-        ckpt = ckpt["module"].get("model", ckpt["module"])
-    if not isinstance(ckpt, dict):
-        raise ValueError(f"unrecognized torch checkpoint payload in {path}")
+    A native JAX trainer checkpoint (a pickle around flax msgpack) and an
+    orbax directory raise (``utils.weights.read_state_dict``): export the
+    JAX weights as a flat npz."""
     sd = {k: v.detach().to(torch.float32) if v.is_floating_point() else v.detach()
-          for k, v in strip_torch_prefixes(ckpt).items() if isinstance(v, torch.Tensor)}
+          for k, v in read_state_dict(path).items()}
     if not sd:
         raise ValueError(f"no tensors found in torch checkpoint {path}")
     return sd

@@ -1,3 +1,5 @@
+from .loggers import BaseLogger, FileTrackerLogger, Loggers, MlflowFileLogger, Status, TerminalLogger
+from .monitoring import SystemMetricsMonitor, collect_sample
 from .pylogger import (
     add_file_handler,
     capture_warnings,
@@ -16,4 +18,12 @@ __all__ = [
     "set_device_tag",
     "logged_tqdm",
     "log_breaking_point",
+    "Loggers",
+    "BaseLogger",
+    "TerminalLogger",
+    "FileTrackerLogger",
+    "MlflowFileLogger",
+    "Status",
+    "SystemMetricsMonitor",
+    "collect_sample",
 ]

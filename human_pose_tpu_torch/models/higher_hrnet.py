@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .hrnet import BasicBlock, HRNetBackbone
+from .hrnet import BasicBlock, HRNetBackbone, rematerialized, remat_selection
 from .norm import batch_norm
 
 
@@ -47,17 +47,22 @@ class HigherHRNet(nn.Module):
 
     Built on ``device`` (default ``"cuda"``; raises when no card is present).
     Weights come from ``load_state_dict`` (see ``utils.weights``) or
-    ``models.init.init_flax_default_``."""
+    ``models.init.init_flax_default_``. ``remat`` is the JAX model's: in
+    train mode the selected parts recompute their forward in the backward
+    (``True`` all; a tuple of 0-3 for stages, 4 for the deconv head, 5 for
+    the stem), with the same results."""
 
     def __init__(self, num_kpts: int = 17, C: int = 32,
                  num_blocks_per_stage: tuple = (1, 1, 4, 3), num_units: int = 4,
-                 num_deconv_resid_blocks: int = 4, device: str | torch.device = "cuda"):
+                 num_deconv_resid_blocks: int = 4, remat: bool | tuple = False,
+                 device: str | torch.device = "cuda"):
         super().__init__()
         dev = resolve_device(device)
         self.num_kpts = num_kpts
+        self.remat_head = 4 in remat_selection(remat)
         self.backbone = HRNetBackbone(
             C, final_stage_single_scale=True,
-            num_blocks_per_stage=num_blocks_per_stage, num_units=num_units,
+            num_blocks_per_stage=num_blocks_per_stage, num_units=num_units, remat=remat,
         )
         self.init_heatmaps_head = nn.Conv2d(C, 2 * num_kpts, 1)
         self.deconv_layers = nn.ModuleList([
@@ -68,7 +73,8 @@ class HigherHRNet(nn.Module):
     def forward(self, images: torch.Tensor):
         feats = self.backbone(images)[0]
         init = self.init_heatmaps_head(feats)
-        deconv = self.deconv_layers[0](torch.cat([feats, init], dim=1))
+        head, head_in = self.deconv_layers[0], torch.cat([feats, init], dim=1)
+        deconv = rematerialized(head, head_in) if self.remat_head and self.training else head(head_in)
         k = self.num_kpts
         heatmaps = [init[:, :k].float(), deconv.float()]
         return heatmaps, init[:, k:].float()

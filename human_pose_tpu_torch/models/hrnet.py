@@ -20,12 +20,34 @@ parameters.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
-from .norm import batch_norm
+from .norm import batch_norm, frozen_running_stats
+
+# remat index of the stem (two stride-2 convs); 0-3 are the stages
+STEM = 5
+
+
+def remat_selection(remat) -> tuple:
+    """The JAX package's selection: ``True`` every stage (0-3), the stem (5)
+    and, in ``HigherHRNet``, the deconv head (4); a tuple those indices;
+    ``False`` none."""
+    return tuple(range(6)) if remat is True else tuple(remat) if remat else ()
+
+
+def rematerialized(fn, *args):
+    """``fn(*args)`` storing only its inputs for the backward, which runs
+    ``fn`` again (``torch.utils.checkpoint``, non-reentrant) with the
+    BatchNorm running statistics frozen: they move once, as under flax's
+    remat."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), frozen_running_stats()))
 
 
 def conv_bn(cin: int, cout: int, kernel: int, stride: int = 1, relu: bool = False) -> nn.Sequential:
@@ -226,8 +248,11 @@ class HRNetBackbone(nn.Module):
     ``final_stage_single_scale`` is set (pose heads)."""
 
     def __init__(self, C: int = 32, final_stage_single_scale: bool = False,
-                 num_blocks_per_stage: Sequence[int] = (1, 1, 4, 3), num_units: int = 4):
+                 num_blocks_per_stage: Sequence[int] = (1, 1, 4, 3), num_units: int = 4,
+                 remat: bool | tuple = False):
         super().__init__()
+        # rematerialized in train mode: stage indices 0-3 and STEM
+        self.remat = remat_selection(remat)
         self.conv1 = nn.Conv2d(3, 64, 3, 2, 1, bias=False)
         self.bn1 = batch_norm(64)
         self.conv2 = nn.Conv2d(64, 64, 3, 2, 1, bias=False)
@@ -242,9 +267,13 @@ class HRNetBackbone(nn.Module):
             for s, (nb, nu, bt, in_ch, out_ch) in enumerate(config)
         )
 
-    def forward(self, x: torch.Tensor) -> list:
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn1(self.conv1(x)))
-        xs = [torch.relu(self.bn2(self.conv2(x)))]
-        for stage in self.stages:
-            xs = stage(xs)
+        return torch.relu(self.bn2(self.conv2(x)))
+
+    def forward(self, x: torch.Tensor) -> list:
+        remat = self.remat if self.training else ()
+        xs = [rematerialized(self.stem, x) if STEM in remat else self.stem(x)]
+        for s, stage in enumerate(self.stages):
+            xs = rematerialized(stage, xs) if s in remat else stage(xs)
         return xs

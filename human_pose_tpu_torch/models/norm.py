@@ -13,12 +13,36 @@ eps 1e-5. In eval mode it normalizes with the running statistics, as
 
 ``BatchNorm2d`` below keeps ``nn.BatchNorm2d``'s eval path and its
 state-dict keys and does flax's train step.
+
+Under rematerialization (``remat``, ``torch.utils.checkpoint``) a train
+forward runs twice, the second time in the backward; flax's remat is
+functional and moves the running statistics once. ``frozen_running_stats()``
+is the context the recompute runs in: the batch statistics are the same,
+the running ones stay where the first forward left them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 from torch import nn
+
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Train-mode ``BatchNorm2d`` forwards in this block (this thread) use
+    the batch statistics but leave ``running_mean``, ``running_var`` and
+    ``num_batches_tracked`` as they are."""
+    before = getattr(_recompute, "active", False)
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = before
 
 BN_MOMENTUM = 0.1  # torch convention (flax 0.9)
 BN_EPS = 1e-5
@@ -79,10 +103,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             mean = x.mean(dims, dtype=stats)
             var = (x.to(stats).square().mean(dims) - mean * mean).clamp_(min=0.0)
-            keep = 1.0 - self.momentum
-            self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
-            self.running_var.copy_(keep * self.running_var + self.momentum * var)
-            self.num_batches_tracked.add_(1)
+            if not getattr(_recompute, "active", False):
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+                self.running_var.copy_(keep * self.running_var + self.momentum * var)
+                self.num_batches_tracked.add_(1)
         return _NormalizeWithStats.apply(x, self.weight, self.bias, mean, var, self.eps)
 
 

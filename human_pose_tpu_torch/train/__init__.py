@@ -1,16 +1,40 @@
 """Keypoints training (port of human_pose_tpu/train/): the pose losses, the
 train state, the optimizers and schedulers, the train, validation and
 gradient-accumulation steps, the task modules (``KeypointsModule``), the
-device prefetch and the ``DataModule``. The classification loss, steps and
-module come with the classification model; the ``Trainer``, callbacks and
-checkpoints with the training engine (ROADMAP module 10d)."""
+device prefetch, and the engine: ``Trainer`` and ``DataModule``, the
+callbacks, checkpoints, meters and metric storage, and the metric plots.
+The classification loss, steps and module come with the classification
+model (ROADMAP module 12)."""
 
+from .callbacks import (
+    ArtifactsLoggerCallback,
+    BaseCallback,
+    Callbacks,
+    DatasetExamplesCallback,
+    MetricsLogger,
+    MetricsPlotterCallback,
+    MetricsSaverCallback,
+    ModelSummary,
+    ResultsPlotterCallback,
+    SaveModelCheckpoint,
+    SystemMetricsMonitoringCallback,
+    default_callbacks,
+)
+from .checkpoint import (
+    AsyncCheckpointWriter,
+    load_checkpoint,
+    load_params_partial,
+    load_train_state,
+    save_checkpoint,
+)
 from .losses import TAG_LOSS_WEIGHT, ae_grouping_loss, ae_keypoints_loss, heatmaps_loss
+from .meters import AverageMeter, Meters
 from .module import BaseModule, ClassificationModule, KeypointsModule, metrics_to_host
 from .optim import LRScheduler, create_lr_scheduler, create_optimizer, set_learning_rate
 from .prefetch import DeviceBatch, DevicePrefetcher, host_batch_to_device
 from .state import TrainState
 from .steps import accumulated_keypoints_train_step, keypoints_train_step, keypoints_val_step
+from .storage import MetricsStorage, SystemMonitoringStorage
 from .trainer import DataModule, Trainer
 
 __all__ = [
@@ -35,4 +59,25 @@ __all__ = [
     "host_batch_to_device",
     "DataModule",
     "Trainer",
+    "AverageMeter",
+    "Meters",
+    "MetricsStorage",
+    "SystemMonitoringStorage",
+    "AsyncCheckpointWriter",
+    "save_checkpoint",
+    "load_checkpoint",
+    "load_train_state",
+    "load_params_partial",
+    "BaseCallback",
+    "Callbacks",
+    "SaveModelCheckpoint",
+    "MetricsPlotterCallback",
+    "MetricsSaverCallback",
+    "MetricsLogger",
+    "ModelSummary",
+    "SystemMetricsMonitoringCallback",
+    "ArtifactsLoggerCallback",
+    "DatasetExamplesCallback",
+    "ResultsPlotterCallback",
+    "default_callbacks",
 ]

@@ -27,6 +27,14 @@ def is_main_process() -> bool:
     return get_rank() == 0
 
 
+def process_count() -> int:
+    """The world size of ``torch.distributed``'s process group, or 1 when
+    none is initialized."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def seed_everything(seed: int) -> None:
     """Seed python, numpy and torch's default generator (the port's own
     randomness takes explicit ``torch.Generator``s; this covers the rest)."""

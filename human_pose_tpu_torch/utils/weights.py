@@ -32,7 +32,12 @@ __all__ = [
     "variables_from_torch",
     "variables_to_torch",
     "load_flax_npz",
+    "read_state_dict",
 ]
+
+# an orbax checkpoint directory holds this file (the JAX package's
+# checkpoint_orbax.py)
+ORBAX_HOST_STATE = "host_state.pkl"
 
 # name prefixes the reference strips when loading (utils/model.py:163-171):
 # DDP wrap ("module."), torch.compile ("_orig_mod."), model wrapper ("net.")
@@ -210,3 +215,52 @@ def load_flax_npz(path: str | Path) -> dict[str, np.ndarray]:
     return {
         k: np.ascontiguousarray(v) for k, v in variables_to_torch(tree).items()
     }
+
+
+def _refuse_jax_formats(path: Path) -> None:
+    import zipfile
+
+    if path.is_dir():
+        if (path / ORBAX_HOST_STATE).exists():
+            raise ValueError(
+                f"{path} is an orbax checkpoint directory; reading it comes with the port's "
+                "checkpoint_orbax, ROADMAP module 16")
+        raise ValueError(f"{path} is a directory, not a checkpoint file")
+    if not zipfile.is_zipfile(path):
+        with open(path, "rb") as f:
+            head = f.read(2)
+        if head[:1] == b"\x80":  # a pickle's protocol opcode
+            raise ValueError(
+                f"{path} is a native JAX trainer checkpoint (a pickle around flax msgpack); the "
+                "port reads neither msgpack nor flax: export its weights as a flat npz with the JAX "
+                "package's utils/export.py::export_weights_npz (the port's reader of such "
+                "checkpoints is ROADMAP module 16)")
+        raise ValueError(f"unrecognized checkpoint format at {path}")
+
+
+def read_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
+    """The tensors of a reference-layout state dict, on the CPU, from a port
+    checkpoint, a reference ``.pt`` (a bare state dict or the trainer-state
+    layout ``{"module": {"model": state_dict, ...}, ...}``, prefixes
+    stripped) or a flax npz (``load_flax_npz``). An orbax directory or a
+    native JAX trainer checkpoint (a pickle around flax msgpack) raises."""
+    import pickle
+    import zipfile
+
+    import torch
+
+    path = Path(path)
+    _refuse_jax_formats(path)
+    with zipfile.ZipFile(path) as z:
+        is_npz = all(name.endswith(".npy") for name in z.namelist())
+    if is_npz:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in load_flax_npz(path).items()}
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        raise ValueError(f"{path}: not a plain torch checkpoint ({e})") from e
+    if isinstance(ckpt, dict) and isinstance(ckpt.get("module"), dict):
+        ckpt = ckpt["module"].get("model", ckpt["module"])
+    if not isinstance(ckpt, dict):
+        raise ValueError(f"unrecognized torch checkpoint payload in {path}")
+    return {k: v for k, v in strip_torch_prefixes(ckpt).items() if torch.is_tensor(v)}

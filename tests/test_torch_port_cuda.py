@@ -1015,3 +1015,112 @@ def test_keypoints_module_step_card_equals_cpu(dev):
     for (name, r), q in zip(ref.named_parameters(), card.model.parameters()):
         rel = float((q.grad.cpu().double() - r.grad).norm() / r.grad.norm().clamp(min=1e-30))
         assert rel <= 1e-3, (name, rel)
+
+
+# -- the training engine: checkpoints on the card, the reduced run card vs CPU ------
+
+_REDUCED = dict(num_kpts=17, C=8, num_blocks_per_stage=(1, 1, 1, 1), num_units=1,
+                num_deconv_resid_blocks=1)
+
+
+def _clone_state(module) -> tuple:
+    return ({k: v.detach().clone() for k, v in module.model.state_dict().items()},
+            {i: {k: v.clone() if torch.is_tensor(v) else v for k, v in s.items()}
+             for i, s in module.state.optimizer.state_dict()["state"].items()})
+
+
+def _assert_same_state(ckpt: dict, model_sd: dict, opt_state: dict) -> None:
+    for k, v in model_sd.items():
+        got = ckpt["module"]["model"][k]
+        assert got.device.type == "cpu" and torch.equal(got, v.cpu()), k
+    for i, s in opt_state.items():
+        for k, v in s.items():
+            got = ckpt["module"]["optimizers"]["optim"]["state"][i][k]
+            assert torch.equal(got, v.cpu()) if torch.is_tensor(v) else got == v, (i, k)
+
+
+def test_async_checkpoint_snapshot_on_card(dev, tmp_path):
+    """``AsyncCheckpointWriter.submit`` on the card while batches arrive
+    through ``DevicePrefetcher`` (its side stream copying the next batches):
+    the file holds the model and Adam's state of the submit, bit for bit,
+    although two more steps updated them in place before the write was
+    joined."""
+    from human_pose_tpu_torch.models import HigherHRNet
+    from human_pose_tpu_torch.train import (
+        AsyncCheckpointWriter, DevicePrefetcher, KeypointsModule, load_checkpoint,
+    )
+
+    module = KeypointsModule.create(HigherHRNet(**_REDUCED, device=dev), seed=1)
+    batches = [_host_batch(s, compact=True, n=4, size=128) for s in range(4)]
+    it = iter(DevicePrefetcher(batches, module.batch_to_device, buffer=2, device=dev))
+    module.training_step(next(it))
+    torch.cuda.synchronize()
+    model_sd, opt_state = _clone_state(module)
+    writer = AsyncCheckpointWriter()
+    writer.submit(tmp_path / "last.pt", module.state, epoch=0)
+    module.training_step(next(it))
+    module.training_step(next(it))
+    writer.wait()
+    ckpt = load_checkpoint(tmp_path / "last.pt")
+    assert ckpt["module"]["step"] == 1 and module.state.step == 3
+    _assert_same_state(ckpt, model_sd, opt_state)
+    assert not all(torch.equal(v, module.model.state_dict()[k]) for k, v in model_sd.items())
+
+
+def test_card_checkpoint_loads_on_cpu(dev, tmp_path):
+    """A checkpoint saved on the card (synchronously and by the writer)
+    reads back on the CPU (``weights_only``), restores a CPU module's model
+    and Adam state exactly, and loads strictly for inference."""
+    from human_pose_tpu_torch.inference import load_inference_weights
+    from human_pose_tpu_torch.models import HigherHRNet
+    from human_pose_tpu_torch.train import (
+        AsyncCheckpointWriter, KeypointsModule, load_checkpoint, load_train_state, save_checkpoint,
+    )
+
+    module = KeypointsModule.create(HigherHRNet(**_REDUCED, device=dev), seed=2)
+    module.training_step(_host_batch(5, compact=True, n=4, size=128))
+    model_sd, opt_state = _clone_state(module)
+    save_checkpoint(tmp_path / "sync.pt", module.state, epoch=3,
+                    lr_schedulers=module.schedulers_state_dict())
+    writer = AsyncCheckpointWriter()
+    writer.submit(tmp_path / "async.pt", module.state, epoch=3)
+    writer.wait()
+    for name in ("sync.pt", "async.pt"):
+        ckpt = load_checkpoint(tmp_path / name)
+        _assert_same_state(ckpt, model_sd, opt_state)
+        cpu = KeypointsModule.create(HigherHRNet(**_REDUCED, device="cpu"), seed=9)
+        load_train_state(cpu.state, ckpt)
+        assert cpu.state.step == 1
+        for k, v in cpu.model.state_dict().items():
+            assert torch.equal(v, model_sd[k].cpu()), k
+        for (_, p), (_, q) in zip(cpu.model.named_parameters(), module.model.named_parameters()):
+            s, t = cpu.state.optimizer.state[p], module.state.optimizer.state[q]
+            assert s["exp_avg"].device.type == "cpu" and torch.equal(s["exp_avg"], t["exp_avg"].cpu())
+        HigherHRNet(**_REDUCED, device="cpu").load_state_dict(
+            load_inference_weights(tmp_path / name), strict=True)
+
+
+def test_engine_reduced_card_equals_cpu(dev, tmp_path):
+    """``chip_smoke``'s phase 11 check: the reduced net trained through
+    ``bin.train_keypoints.main`` for two epochs of two batches on the card
+    and on the CPU (float32, cuDNN off) on a synthesized directory, with
+    Adam and with SGD: both first steps' loss terms within rel 1e-4; SGD's
+    later steps and epoch means within ``chip_smoke.ENGINE_SGD_RTOL`` (1e-3)
+    of the larger of the term and the loss (Adam's later steps amplify
+    summation-order differences: see the constant's comment)."""
+    from pathlib import Path
+
+    import chip_smoke
+
+    rng = np.random.default_rng(5)
+    root = tmp_path / "coco"
+    for split in ("train2017", "val2017"):
+        chip_smoke.make_eval_corpus(root, rng, split, 8, (2, 6), 4)
+    yaml_path = str(Path(chip_smoke.__file__).resolve().parent / chip_smoke.TRAIN_YAML)
+    out = chip_smoke.engine_card_vs_cpu(
+        dev, yaml_path, [f"--dataloader.train_ds.root={root}", f"--dataloader.val_ds.root={root}"],
+        tmp_path / "runs")
+    tol = chip_smoke.ENGINE_SGD_RTOL
+    assert out["adam"]["first_rel"] <= 1e-4 and out["sgd"]["first_rel"] <= 1e-4
+    assert out["sgd"]["later_rel_of_scale"] <= tol and out["sgd"]["epochs_rel_of_scale"] <= tol
+    assert len(out["sgd"]["loss_card"]) == 4

@@ -342,8 +342,8 @@ def test_deterministic_and_cudnn_section():
 
 def test_config_refusals():
     cfg = KeypointsConfig.from_dict({"trainer": {"accelerator": "cpu"}})
-    for call, module in ((cfg.create_callbacks, "10d"), (cfg.create_trainer, "10d"),
-                         (cfg.create_logger, 16), (cfg.make_mesh, 14),
+    orbax = KeypointsConfig.from_dict({"trainer": {"accelerator": "cpu", "ckpt_backend": "orbax"}})
+    for call, module in ((orbax.create_trainer, 16), (cfg.make_mesh, 14),
                          (lambda: cfg.bn_groups(mesh=object()), 14),
                          (lambda: cfg.create_net(bn_groups=2), 14)):
         with pytest.raises(NotImplementedError, match=f"module {module}"):

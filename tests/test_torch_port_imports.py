@@ -41,7 +41,8 @@ def _run(code: str, cwd: Path) -> subprocess.CompletedProcess:
 def test_package_imports_with_jax_blocked():
     """Every module of the port (and chip_smoke) imports with JAX, flax and
     the JAX package made unimportable, and without CUDA: the subpackages of
-    the inference and eval paths, the CLIs and training too."""
+    the inference and eval paths, the CLIs and training (its engine and
+    CLI) too."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'human_pose_tpu'): sys.modules[m] = None\n"
@@ -51,6 +52,7 @@ def test_package_imports_with_jax_blocked():
         "import human_pose_tpu_torch.metrics, human_pose_tpu_torch.loggers\n"
         "import human_pose_tpu_torch.configs, human_pose_tpu_torch.bin.eval_keypoints\n"
         "import human_pose_tpu_torch.bin.inference_keypoints, human_pose_tpu_torch.train\n"
+        "import human_pose_tpu_torch.bin.train_keypoints, human_pose_tpu_torch.utils.profiling\n"
         "print('ok')\n"
     )
     res = _run(code, ROOT)

@@ -220,7 +220,7 @@ def test_load_inference_weights(tmp_path):
     # a native JAX trainer checkpoint: a pickle around flax msgpack bytes
     with open(tmp_path / "last.ckpt", "wb") as f:
         pickle.dump({"module": b"\x81\xa4step\x00", "epoch": 1}, f)
-    with pytest.raises(ValueError, match="module 10"):
+    with pytest.raises(ValueError, match="npz"):
         load_inference_weights(tmp_path / "last.ckpt")
 
 

@@ -163,8 +163,8 @@ def test_module_refusals():
         KeypointsModule.create(net, mesh=object())
     with pytest.raises(NotImplementedError, match="module 12"):
         ClassificationModule(net, None, {})
-    with pytest.raises(NotImplementedError, match="module 10d"):
-        Trainer()
+    with pytest.raises(NotImplementedError, match="module 16"):
+        Trainer(None, [], ckpt_backend="orbax")
 
 
 # -- the steps against JAX's module ------------------------------------------------
