@@ -10,6 +10,7 @@
     python3 chip_smoke.py --train-only         # the training phase alone, see the end
     python3 chip_smoke.py --train-data-only    # the training input pipeline alone, see the end
     python3 chip_smoke.py --train-engine-only  # the training engine alone, see the end
+    python3 chip_smoke.py --classification-only  # ImageNet classification alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -102,6 +103,25 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    step through the ``Trainer`` beside phase 10's steady step, the step
    after a checkpoint submit, each save's seconds and size; the reduced
    net's engine run card vs CPU
+12. ImageNet classification (``classification_phase``): one float32 SGD
+   step (the yaml's: nesterov, weight decay; TF32 and cuDNN off) of a
+   reduced ClassificationHRNet (C=8, 1000 classes, batch 8 and batch 4 at
+   64^2) on the card and on the CPU from the same weights, each held
+   against a float64 evaluation with its own ReLU decisions, and the card
+   against the CPU where they decide alike; ClassificationHRNet-W32
+   (41,232,680 parameters) from ``experiments/classification/hrnet_32.yaml``
+   at its published point (batch 80, 224^2, SGD lr 0.1) through
+   ``create_module`` on a batch made on the card, float32 and bfloat16: ms
+   a step, img/s, peak memory, busy and idle share, every loss finite; the accumulated step at 2
+   microbatches; a synthesized ImageFolder (4 classes, 160 train and 32 val
+   seeded jpgs in ImageNet's commonest raw sizes): the loader's samples a
+   second and host ms a sample, ``bin.train_classification.main`` for two
+   epochs to FINISHED, its last.pt through ``bin.eval_classification.main``
+   serial and batched (equal errors) and ``bin.inference_classification.main
+   --mode=val`` (its overlays), eval img/s serial and batched and the
+   inference model's ms an image at input 256 in float32 and bfloat16, its
+   float32 probabilities card vs CPU, and the last.pt as HigherHRNet-W32's
+   pretrained weights (every backbone parameter loaded); no kernel launched
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
@@ -142,13 +162,15 @@ alone on the W32 model; it prints the phase's record as one JSON object
 last (no ``ok`` line). ``--eval-only`` does the same for phase 8,
 ``--train-only`` for phase 9 (which builds no kernel) and
 ``--train-data-only`` for phase 10 (which builds the dense refine and the
-grouping for its validation) and ``--train-engine-only`` for phase 11 (the
+grouping for its validation), ``--train-engine-only`` for phase 11 (the
 same two kernels; without phase 10 in the process it measures phase 10's
-steady step itself).
+steady step itself) and ``--classification-only`` for phase 12 (which
+builds no kernel).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -1633,32 +1655,148 @@ def train_batch(n: int, size: int, persons: int, gen, device) -> dict:
             "joints": joints}
 
 
+def relu_decisions(replay: list | None = None):
+    """A torch function mode over every ReLU that runs inside it
+    (``torch.relu``, ``torch.relu_``, ``F.relu``, ``nn.ReLU``), in call
+    order: each ReLU's input is kept (``.inputs``, float64 on the CPU).
+    With ``replay``, an earlier evaluation's ``.inputs``, each ReLU instead
+    returns its input times that evaluation's decision (input > 0), in
+    place where the ReLU is: a forward that takes another evaluation's ReLU
+    decisions."""
+    import torch
+    from torch.nn import functional as F
+    from torch.overrides import TorchFunctionMode
+
+    inplace_relus = {torch.relu_, torch.Tensor.relu_}
+    relus = {torch.relu, F.relu, torch.Tensor.relu} | inplace_relus
+
+    class ReluDecisions(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.inputs = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func not in relus:
+                return func(*args, **kwargs)
+            x = args[0]
+            if replay is None:
+                self.inputs.append(x.detach().cpu().double())
+                return func(*args, **kwargs)
+            keep = (replay[len(self.inputs)] > 0).to(x.device, x.dtype)
+            self.inputs.append(x.detach().cpu().double())
+            inplace = func in inplace_relus or kwargs.get("inplace") or args[1:2] == (True,)
+            return x.mul_(keep) if inplace else x * keep
+
+    return ReluDecisions()
+
+
+def rel_gap(a, b) -> float:
+    """||a - b|| / ||b|| (float64 tensors)."""
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def step_card_vs_cpu(dev, model, step, ref_loss, cudnn: bool = True,
+                     decisions: bool = False) -> dict:
+    """One training step of a copy of ``model`` on the CPU and of another on
+    ``dev``: ``step(net, where)`` makes the copy's state, steps and returns
+    the step's metrics (TF32 is the caller's; cuDNN is ``cudnn`` for both
+    steps). The reference is the gradient of ``ref_loss(net)`` on a float64
+    copy of ``model`` on the CPU (BatchNorm moments in float64 too). With
+    ``decisions`` each step keeps its ReLU inputs (``relu_decisions``), and
+    where a device's ReLU decisions differ from float64's the reference is
+    evaluated again with that device's decisions.
+
+    Returns ``metrics`` and ``after`` (the state dicts after the step) as
+    (CPU, card), ``start`` (the state dict before), ``grads``: {"cpu",
+    "card", "ref", and with ``decisions`` "ref_cpu", "ref_card"} of name ->
+    float64 CPU tensor; the BatchNorm running statistics' largest card-CPU
+    gap of each tensor's largest value and how many moved; with
+    ``decisions`` ``relu``: for each device the decisions that differ from
+    float64's (count, and the largest |float64 input| among them over that
+    ReLU input's largest |value|) and the decisions in which card and CPU
+    differ."""
+    import torch
+
+    cpu = torch.device("cpu")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def one_step(where):
+        net = copy.deepcopy(model).to(where)
+        mode = relu_decisions() if decisions else contextlib.nullcontext()
+        enabled = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            with mode:
+                metrics = step(net, where)
+        finally:
+            torch.backends.cudnn.enabled = enabled
+        return net, {k: float(v) for k, v in metrics.items()}, getattr(mode, "inputs", None)
+
+    def reference(replay=None):
+        net = copy.deepcopy(model).double().train()
+        mode = relu_decisions(replay) if decisions else contextlib.nullcontext()
+        with mode:
+            loss = ref_loss(net)
+        loss.backward()
+        return {name: p.grad for name, p in net.named_parameters()}, getattr(mode, "inputs", None)
+
+    (net_c, m_c, in_c), (net_g, m_g, in_g) = one_step(cpu), one_step(dev)
+    ref, in_ref = reference()
+    grads = {"cpu": {n: p.grad.double() for n, p in net_c.named_parameters()},
+             "card": {n: p.grad.cpu().double() for n, p in net_g.named_parameters()}, "ref": ref}
+    sd_c = net_c.state_dict()
+    sd_g = {k: v.cpu() for k, v in net_g.state_dict().items()}
+    stats = {k: float((sd_g[k] - sd_c[k]).abs().max() / sd_c[k].abs().max().clamp(min=1e-30))
+             for k in sd_c if ".running_" in k}
+    moved = sum(not torch.equal(sd_c[k], start[k]) for k in stats)
+    out = {"metrics": (m_c, m_g), "start": start, "after": (sd_c, sd_g), "grads": grads,
+           "bn_stats_rel_max": max(stats.values()), "bn_stats_moved": f"{moved} of {len(stats)}",
+           "bn_stats_all_moved": moved == len(stats)}
+    if not decisions:
+        return out
+
+    def differ(inputs, base):
+        if len(inputs) != len(base):
+            raise AssertionError(f"{len(inputs)} ReLUs against {len(base)}")
+        return [(x > 0) != (b > 0) for x, b in zip(inputs, base)]
+
+    relu = {"calls": len(in_ref)}
+    for who, inputs in (("cpu", in_c), ("card", in_g)):
+        flips = differ(inputs, in_ref)
+        n = sum(int(f.sum()) for f in flips)
+        worst = max((float(b[f].abs().max() / b.abs().max()) for f, b in zip(flips, in_ref)
+                     if bool(f.any())), default=0.0)
+        relu[who] = {"differ_from_float64": n, "differ_input_rel_max": worst}
+        grads[f"ref_{who}"] = reference(inputs)[0] if n else ref
+    relu["card_vs_cpu_differ"] = sum(int(f.sum()) for f in differ(in_g, in_c))
+    out["relu"] = relu
+    return out
+
+
 def train_step_card_vs_cpu(dev, lr: float = 1e-3, batch: dict | None = None,
                            what: str = "a seeded batch", cudnn: bool = True,
                            check_grads: bool = True) -> dict:
     """One float32 Adam step (TF32 off) of the reduced net (``TRAIN_REDUCED``,
     batch 4 at 128^2) on the card and on the CPU, from the same
     ``init_keypoints_weights_`` weights and the same batch (``batch``, NCHW
-    CPU tensors, or a seeded one made on the CPU). cuDNN's
-    backward sums in its own order, so the checks are tolerances: each loss
-    term within rel 1e-4; each parameter's gradient within ||card - ref|| /
-    ||ref|| <= 1e-3 of ``ref``, the same gradients evaluated in float64 on
-    the CPU (a float64 copy of the net: BatchNorm moments in float64 too).
-    The CPU's own float32 gradients are not the reference: on phase 9's
-    seeded batch they miss float64 by 1.9e-4 where the card's stay within
-    1.1e-5 (an H100), and on phase 10's loader batch cuDNN's miss it by
-    2.3e-3 of the whole gradient where the CPU's stay within 4.7e-6; both
-    gaps are returned. ``cudnn`` False runs the card's step with cuDNN off
-    (PyTorch's own convolutions); ``check_grads`` False reports the
-    gradients' gap without holding it. Each BatchNorm running statistic
-    within 1e-3 of its tensor's
-    largest value; the parameters after the step within 2e-5 + 1e-6 where
-    both gradients have one sign and |g| >= 1e-6 (Adam's first update is lr
-    * g / (|g| + 1e-8), so there the two updates differ by at most lr * 1e-8
-    * 2 / 1e-6), and within 2 * lr + 1e-6 elsewhere. Raises on a miss;
-    returns the largest errors."""
-    import copy
-
+    CPU tensors, or a seeded one made on the CPU), by ``step_card_vs_cpu``.
+    cuDNN's backward sums in its own order, so the checks are tolerances:
+    each loss term within rel 1e-4; each parameter's gradient within
+    ||card - ref|| / ||ref|| <= 1e-3 of ``ref``, the same gradients
+    evaluated in float64 on the CPU. The CPU's own float32 gradients are
+    not the reference: on phase 9's seeded batch they miss float64 by
+    1.9e-4 where the card's stay within 1.1e-5 (an H100), and on phase 10's
+    loader batch cuDNN's miss it by 2.3e-3 of the whole gradient where the
+    CPU's stay within 4.7e-6; both gaps are returned. ``cudnn`` False runs
+    the steps with cuDNN off (PyTorch's own convolutions); ``check_grads``
+    False reports the gradients' gap without holding it. Each BatchNorm
+    running statistic within 1e-3 of its tensor's largest value; the
+    parameters after the step within 2e-5 + 1e-6 where both gradients have
+    one sign and |g| >= 1e-6 (Adam's first update is lr * g / (|g| + 1e-8),
+    so there the two updates differ by at most lr * 1e-8 * 2 / 1e-6), and
+    within 2 * lr + 1e-6 elsewhere. Raises on a miss; returns the largest
+    errors."""
     import torch
 
     from human_pose_tpu_torch.models import HigherHRNet, init_keypoints_weights_
@@ -1672,54 +1810,38 @@ def train_step_card_vs_cpu(dev, lr: float = 1e-3, batch: dict | None = None,
     model = init_keypoints_weights_(HigherHRNet(**TRAIN_REDUCED, device=cpu), gen)
     if batch is None:
         batch = train_batch(TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SIZE, 30, gen, cpu)
-    start = {k: v.clone() for k, v in model.state_dict().items()}
-    def one_step(where):
-        net = copy.deepcopy(model).to(where)
+
+    def step(net, where):
         state = TrainState.create(net, create_optimizer(net.parameters(), "Adam", lr), device=where)
-        enabled = torch.backends.cudnn.enabled
-        torch.backends.cudnn.enabled = cudnn
-        try:
-            _, metrics = keypoints_train_step(state, batch, lr)
-        finally:
-            torch.backends.cudnn.enabled = enabled
-        return net, {k: float(v) for k, v in metrics.items()}
+        return keypoints_train_step(state, batch, lr)[1]
 
-    def reference_grads():
-        net = copy.deepcopy(model).double().train()
+    def ref_loss(net):
         hms, tags = net(prep_images(batch["images"]).double())
-        total, _ = ae_keypoints_loss(hms, tags, batch["heatmaps"], batch["masks"], batch["joints"])
-        total.backward()
-        return {name: p.grad for name, p in net.named_parameters()}
+        return ae_keypoints_loss(hms, tags, batch["heatmaps"], batch["masks"], batch["joints"])[0]
 
-    (net_c, m_c), (net_g, m_g) = one_step(cpu), one_step(dev)
-    ref = reference_grads()
+    run = step_card_vs_cpu(dev, model, step, ref_loss, cudnn)
+    (m_c, m_g), (sd_c, sd_g), g = run["metrics"], run["after"], run["grads"]
     out = {"loss_rel": max(abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c), "metrics_card": m_g}
-    grad_rel, cpu_rel, vs_cpu, sd_c, sd_g = {}, {}, {}, net_c.state_dict(), net_g.state_dict()
+    grad_rel = {n: rel_gap(g["card"][n], r) for n, r in g["ref"].items()}
+    cpu_rel = {n: rel_gap(g["cpu"][n], r) for n, r in g["ref"].items()}
     p_sure = p_any = 0.0
     ambiguous = total = 0
-    for (name, pc), (_, pg) in zip(net_c.named_parameters(), net_g.named_parameters()):
-        gc, gg, gr = pc.grad, pg.grad.cpu(), ref[name]
-        scale = gr.norm().clamp(min=1e-30)
-        grad_rel[name] = float((gg.double() - gr).norm() / scale)
-        cpu_rel[name] = float((gc.double() - gr).norm() / scale)
-        vs_cpu[name] = float((gg - gc).norm() / gc.norm().clamp(min=1e-30))
-        diff = (sd_g[name].cpu() - sd_c[name]).abs()
+    for name in g["ref"]:
+        gc, gg = g["cpu"][name], g["card"][name]
+        diff = (sd_g[name] - sd_c[name]).abs()
         sure = (gc.abs() >= 1e-6) & (gg.abs() >= 1e-6) & (torch.sign(gc) == torch.sign(gg))
         p_sure = max(p_sure, float(diff[sure].max()) if bool(sure.any()) else 0.0)
         p_any = max(p_any, float(diff.max()))
         ambiguous += int((~sure).sum())
         total += sure.numel()
-    stats = {k: float((sd_g[k].cpu() - sd_c[k]).abs().max() / sd_c[k].abs().max().clamp(min=1e-30))
-             for k in sd_c if ".running_" in k}
-    moved = sum(not torch.equal(sd_c[k], start[k]) for k in stats)
-    card_flat = torch.cat([pg.grad.cpu().double().flatten() for pg in net_g.parameters()])
-    ref_flat = torch.cat([g.flatten() for g in ref.values()])
+    card_flat = torch.cat([v.flatten() for v in g["card"].values()])
+    ref_flat = torch.cat([v.flatten() for v in g["ref"].values()])
     out.update(grad_rel_max=max(grad_rel.values()),
                grad_rel_worst=max(grad_rel, key=grad_rel.get),
-               grad_rel_global=float((card_flat - ref_flat).norm() / ref_flat.norm()),
+               grad_rel_global=rel_gap(card_flat, ref_flat),
                cpu_grad_rel_max=max(cpu_rel.values()), cpu_grad_rel_worst=max(cpu_rel, key=cpu_rel.get),
-               grad_rel_vs_cpu_max=max(vs_cpu.values()),
-               bn_stats_rel_max=max(stats.values()), bn_stats_moved=f"{moved} of {len(stats)}",
+               grad_rel_vs_cpu_max=max(rel_gap(g["card"][n], g["cpu"][n]) for n in g["ref"]),
+               bn_stats_rel_max=run["bn_stats_rel_max"], bn_stats_moved=run["bn_stats_moved"],
                params_sure_abs_max=p_sure, params_abs_max=p_any,
                params_sign_ambiguous=f"{ambiguous} of {total}")
     n, size = batch["images"].shape[0], batch["images"].shape[-1]
@@ -1728,9 +1850,46 @@ def train_step_card_vs_cpu(dev, lr: float = 1e-3, batch: dict | None = None,
         f"{'on' if cudnn else 'off'}): " + ", ".join(f"{k} {v}" for k, v in out.items()))
     grads_ok = out["grad_rel_max"] <= 1e-3 or not check_grads
     if not (out["loss_rel"] <= 1e-4 and grads_ok and out["bn_stats_rel_max"] <= 1e-3
-            and moved == len(stats) and p_sure <= 2e-5 + 1e-6 and p_any <= 2 * lr + 1e-6):
+            and run["bn_stats_all_moved"] and p_sure <= 2e-5 + 1e-6 and p_any <= 2 * lr + 1e-6):
         raise AssertionError(f"train step card vs CPU: {out}")
     return out
+
+
+def timed_steps(step, n_images: int, what: str, smi: str) -> dict:
+    """``step()`` (ending in a device sync, returning its metrics) once for
+    cuDNN's autotuning, then for a 3 s warm-up, then ``TRAIN_STEPS`` times by
+    host wall (median, spread, img/s); the peak memory over the phase's
+    start, the device busy time and idle share of one more step (profiler);
+    every step's losses finite. Raises on a non-finite loss."""
+    import torch
+
+    losses = []
+
+    def call():
+        losses.append({k: float(v) for k, v in step().items()})
+
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    warm = 1 + warm_up(call, 3.0)
+    times = [host_ms(call) for _ in range(TRAIN_STEPS)]
+    peak = torch.cuda.max_memory_allocated()
+    busy, groups = profile_breakdown(call)
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"{what}: non-finite losses {losses}")
+    ms = float(np.median(times))
+    rec = {"warmup_steps": warm, "ms": ms, "ms_min": min(times), "ms_max": max(times),
+           "img_per_s": n_images / ms * 1e3, "peak_gib": peak / 2**30,
+           "peak_over_start_gib": (peak - base_mem) / 2**30, "busy_ms": busy,
+           "idle_share": None if busy is None else max(0.0, 1 - busy / ms), "busy_groups_ms": groups,
+           "loss_per_step": [m["loss"] for m in losses]}
+    idle = "not measured" if busy is None else f"{rec['idle_share']:.3f}"
+    log(f"{what}: {ms:.1f} ms a step (median of {TRAIN_STEPS} after {warm} warm-up steps; "
+        f"{min(times):.1f}-{max(times):.1f}), {rec['img_per_s']:.2f} img/s, peak {rec['peak_gib']:.2f} GiB "
+        f"({rec['peak_over_start_gib']:.2f} over the start), device busy {busy} ms (idle share {idle}); "
+        f"loss a step {[round(v, 6) for v in rec['loss_per_step']]}  [{smi}]")
+    return rec
 
 
 def train_phase(dev, counted, smi: str) -> dict:
@@ -1742,7 +1901,8 @@ def train_phase(dev, counted, smi: str) -> dict:
     autocast: after one step (cuDNN autotunes) and a 3 s warm-up,
     ``TRAIN_STEPS`` steps timed by host wall to a device sync (median,
     spread, img/s), the peak memory, the device busy time and idle share of
-    one step (profiler), every step's losses finite; ``accumulated_keypoints_train_step(2)`` once on the same batch.
+    one step (profiler), every step's losses finite (``timed_steps``);
+    ``accumulated_keypoints_train_step(2)`` once on the same batch.
     All of it with every kernel's launch counter zeroed before and required
     at 0 after: no kernel of the port lies on the training path."""
     import torch
@@ -1788,37 +1948,14 @@ def train_phase(dev, counted, smi: str) -> dict:
                 state = TrainState.create(
                     model, create_optimizer(model.parameters(), opt_cfg["name"], base_lr, **opt_params),
                     dtype=dtype, device=dev)
-                losses = []
 
                 def step():
-                    losses.append(keypoints_train_step(state, batch, sched.lr)[1])
+                    metrics = keypoints_train_step(state, batch, sched.lr)[1]
                     torch.cuda.synchronize()
+                    return metrics
 
-                torch.cuda.empty_cache()
-                base_mem = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                step()  # cuDNN's autotuning of the step's shapes (cudnn.benchmark)
-                warm = 1 + warm_up(step, 3.0)
-                times = [host_ms(step) for _ in range(TRAIN_STEPS)]
-                peak = torch.cuda.max_memory_allocated()
-                busy, groups = profile_breakdown(step)
-                ms = float(np.median(times))
-                values = [{k: float(v) for k, v in m.items()} for m in losses]
-                if not all(np.isfinite(v).all() for m in values for v in m.values()):
-                    raise AssertionError(f"train {name}: non-finite losses {values}")
-                rec = {"warmup_steps": warm, "ms": ms, "ms_min": min(times), "ms_max": max(times),
-                       "img_per_s": n / ms * 1e3, "peak_gib": peak / 2**30,
-                       "peak_over_start_gib": (peak - base_mem) / 2**30, "busy_ms": busy,
-                       "idle_share": None if busy is None else max(0.0, 1 - busy / ms),
-                       "busy_groups_ms": groups, "steps": state.step,
-                       "loss_per_step": [m["loss"] for m in values]}
-                out[name] = rec
-                idle = "not measured" if busy is None else f"{rec['idle_share']:.3f}"
-                log(f"train {name}: {ms:.1f} ms a step (median of {TRAIN_STEPS} after {warm} warm-up "
-                    f"steps; {min(times):.1f}-{max(times):.1f}), {rec['img_per_s']:.2f} img/s, peak "
-                    f"{rec['peak_gib']:.2f} GiB ({rec['peak_over_start_gib']:.2f} over the phase's start), "
-                    f"device busy {busy} ms (idle share {idle}); loss a step "
-                    f"{[round(v, 6) for v in rec['loss_per_step']]}  [{smi}]")
+                out[name] = timed_steps(step, n, f"train {name}", smi)
+                out[name]["steps"] = state.step
                 if dtype == torch.float32:
                     _, acc = accumulated_keypoints_train_step(2)(state, batch, sched.lr)
                     acc = {k: float(v) for k, v in acc.items()}
@@ -2575,6 +2712,396 @@ def train_engine_only(dev, smi: str) -> int:
     return 0
 
 
+# phase 12, ImageNet classification: ClassificationHRNet-W32 from its yaml
+# (batch 80, 224^2, SGD lr 0.1, momentum 0.9, nesterov, weight decay 1e-4)
+CLS_YAML = "experiments/classification/hrnet_32.yaml"
+CLS_PARAMS = 41_232_680  # ClassificationHRNet-W32 at 1000 classes
+CLS_REDUCED = {"C": 8, "num_classes": 1000, "num_blocks_per_stage": (1, 1, 1, 1), "num_units": 1}
+# the reduced step is held at batch 8 and at batch 4; at batch 4 a ReLU
+# input of the head's last Bottleneck (2x2 maps) lies within rounding of
+# zero, and a float32 evaluation that decides it otherwise than float64 moves
+# gradients by more than 1e-3 a tensor (``classification_step_card_vs_cpu``)
+CLS_REDUCED_BATCHES, CLS_REDUCED_SIZE = (8, 4), 64
+# a synthesized ImageFolder in ImageNet's commonest raw sizes (h, w): 4
+# classes, 40 training images a class (two batches of 80 an epoch) and 8
+# validation images a class
+CLS_RAW_HW = ((375, 500), (500, 375), (333, 500), (500, 500))
+CLS_CLASSES, CLS_TRAIN_PER_CLASS, CLS_VAL_PER_CLASS = 4, 40, 8
+CLS_EPOCHS = 2
+CLS_EVAL_BATCH = 16
+CLS_INFER_CALLS = 20
+
+
+def make_imagefolder(root: Path, rng, split: str, per_class: int) -> dict:
+    """``root/<split>/<wnid>/<wnid>_<i>.JPEG``: ``per_class`` seeded jpgs of
+    the sizes ``CLS_RAW_HW`` in each of ``CLS_CLASSES`` classes (a smooth
+    random background and a disc of the class's color, so that the classes
+    can be told apart). Returns the counts of images a raw size."""
+    import cv2
+
+    sizes = {}
+    for c in range(CLS_CLASSES):
+        d = root / split / f"n{c:08d}"
+        d.mkdir(parents=True)
+        color = tuple(int(v) for v in (np.arange(3) * 97 + c * 61) % 256)
+        for i in range(per_class):
+            h, w = CLS_RAW_HW[int(rng.integers(len(CLS_RAW_HW)))]
+            sizes[f"{h}x{w}"] = sizes.get(f"{h}x{w}", 0) + 1
+            small = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+            img = cv2.resize(small, (w, h), interpolation=cv2.INTER_LINEAR)
+            r = int(rng.integers(min(h, w) // 6, min(h, w) // 3))
+            center = (int(rng.integers(r, w - r)), int(rng.integers(r, h - r)))
+            cv2.circle(img, center, r, color, -1)
+            cv2.imwrite(str(d / f"n{c:08d}_{i:04d}.JPEG"), img)
+    return sizes
+
+
+def cls_batch(n: int, size: int, num_classes: int, gen, device) -> tuple:
+    """A seeded batch made on ``device``: uint8 NCHW images, int64 labels."""
+    import torch
+
+    kw = {"generator": gen, "device": device}
+    return (torch.randint(0, 256, (n, 3, size, size), dtype=torch.uint8, **kw),
+            torch.randint(0, num_classes, (n,), **kw))
+
+
+def _cls_sgd(cfg) -> tuple:
+    """(lr, the optimizer's other parameters) of a classification config."""
+    params = dict(cfg.module.optimizers["optim"]["params"])
+    return params.pop("lr"), params
+
+
+def classification_step_card_vs_cpu(dev, batch_size: int = CLS_REDUCED_BATCHES[0]) -> dict:
+    """One float32 SGD step (the yaml's: nesterov, momentum 0.9, weight decay
+    1e-4, lr 0.1; TF32 off, cuDNN off, as phase 10 holds its step) of the
+    reduced ClassificationHRNet (``CLS_REDUCED``, ``batch_size`` at 64^2) on
+    the card and on the CPU from the same ``init_classification_weights_``
+    weights and a seeded batch (``step_card_vs_cpu`` with ReLU decisions).
+    A ReLU input within rounding of zero makes float32 and float64 take
+    different decisions, and one such decision at 2x2 maps moves the whole
+    gradient (``CLS_REDUCED_BATCHES``), so each device is held against the
+    float64 gradient evaluated with its own ReLU decisions. Held: the loss
+    within rel 1e-4, each error within one sample; each device's decisions
+    that differ from float64's at an input within 1e-4 of that ReLU input's
+    largest value; every gradient of the card and of the CPU within
+    ||g - ref|| / ||ref|| 1e-3 of that reference (a bias right before a
+    train-mode BatchNorm has a zero gradient in exact arithmetic: where
+    ||ref|| is below 1e-6 of the whole gradient's norm, the card's must be
+    below 1e-5 of it); each BN running statistic within 1e-3 of its
+    tensor's largest value; where card and CPU take every decision alike,
+    each gradient of the card within 1e-3 of the CPU's and each other
+    parameter's update within 1e-3 of the CPU's (else both gaps are only
+    reported). Raises on a miss; returns the largest errors."""
+    import torch
+
+    from human_pose_tpu_torch.configs import ClassificationConfig
+    from human_pose_tpu_torch.models import ClassificationHRNet, init_classification_weights_
+    from human_pose_tpu_torch.ops import prep_images
+    from human_pose_tpu_torch.train import (
+        TrainState, classification_loss, classification_train_step, create_optimizer,
+    )
+
+    cfg = ClassificationConfig.from_dict(ClassificationConfig.from_yaml_to_dict(
+        str(Path(__file__).resolve().parent / CLS_YAML), []))
+    lr, opt_params = _cls_sgd(cfg)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 12)
+    model = init_classification_weights_(ClassificationHRNet(**CLS_REDUCED, device=cpu), gen)
+    images, labels = cls_batch(batch_size, CLS_REDUCED_SIZE, CLS_REDUCED["num_classes"], gen, cpu)
+
+    def step(net, where):
+        opt = create_optimizer(net.parameters(), "SGD", lr, **opt_params)
+        return classification_train_step(TrainState.create(net, opt, device=where), images, labels, lr)[1]
+
+    run = step_card_vs_cpu(dev, model, step,
+                           lambda net: classification_loss(net(prep_images(images).double()), labels),
+                           cudnn=False, decisions=True)
+    (m_c, m_g), (sd_c, sd_g), g, relu = run["metrics"], run["after"], run["grads"], run["relu"]
+    total = float(torch.cat([v.flatten() for v in g["ref"].values()]).norm())
+    grad_rel, cpu_rel, own_rel, cpu_own_rel, zero_rel, vs_cpu, step_rel = {}, {}, {}, {}, {}, {}, {}
+    for name, ref in g["ref"].items():
+        if float(ref.norm()) < 1e-6 * total:
+            zero_rel[name] = float(g["card"][name].norm()) / total
+            continue
+        grad_rel[name] = rel_gap(g["card"][name], g["ref_card"][name])
+        cpu_rel[name] = rel_gap(g["cpu"][name], g["ref_cpu"][name])
+        own_rel[name] = rel_gap(g["card"][name], ref)
+        cpu_own_rel[name] = rel_gap(g["cpu"][name], ref)
+        vs_cpu[name] = rel_gap(g["card"][name], g["cpu"][name])
+        step_c, step_g = sd_c[name] - run["start"][name], sd_g[name] - run["start"][name]
+        step_rel[name] = float((step_g - step_c).norm() / step_c.norm())
+    alike = relu["card_vs_cpu_differ"] == 0
+    out = {"batch": batch_size, "loss_rel": abs(m_g["loss"] - m_c["loss"]) / abs(m_c["loss"]),
+           "errors_abs": max(abs(m_g[k] - m_c[k]) for k in ("top-1_error", "top-5_error")),
+           "relu": relu,
+           "grad_rel_max": max(grad_rel.values()), "grad_rel_worst": max(grad_rel, key=grad_rel.get),
+           "cpu_grad_rel_max": max(cpu_rel.values()),
+           "grad_rel_own_decisions_max": max(own_rel.values()),
+           "cpu_grad_rel_own_decisions_max": max(cpu_own_rel.values()),
+           "zero_grad_biases": len(zero_rel), "zero_grad_rel_max": max(zero_rel.values(), default=0.0),
+           "bn_stats_rel_max": run["bn_stats_rel_max"], "bn_stats_moved": run["bn_stats_moved"],
+           "grad_rel_vs_cpu_max": max(vs_cpu.values()), "update_rel_max": max(step_rel.values()),
+           "metrics_card": m_g}
+    log(f"classification step card vs CPU ({batch_size} x {CLS_REDUCED_SIZE}^2, C=8 reduced, "
+        f"SGD nesterov, float32, TF32 and cuDNN off): " + ", ".join(f"{k} {v}" for k, v in out.items()))
+    decisions_ok = all(relu[who]["differ_input_rel_max"] <= 1e-4 for who in ("cpu", "card"))
+    if not (out["loss_rel"] <= 1e-4 and out["errors_abs"] <= 1 / batch_size + 1e-6 and decisions_ok
+            and out["grad_rel_max"] <= 1e-3 and out["cpu_grad_rel_max"] <= 1e-3
+            and out["zero_grad_rel_max"] <= 1e-5
+            and out["bn_stats_rel_max"] <= 1e-3 and run["bn_stats_all_moved"]
+            and (not alike or (out["grad_rel_vs_cpu_max"] <= 1e-3 and out["update_rel_max"] <= 1e-3))):
+        raise AssertionError(f"classification step card vs CPU: {out}")
+    return out
+
+
+def classification_steps(dev, smi: str) -> dict:
+    """W32 from ``CLS_YAML`` (``create_module`` on the card: the
+    classification init, the yaml's SGD and MultiStepLR) at its batch and
+    input size on a batch made on the card, in float32 (TF32 off) and in
+    bfloat16 autocast (``timed_steps``); ``accumulated_classification_train_step(2)``
+    once in float32."""
+    import torch
+
+    from human_pose_tpu_torch.configs import ClassificationConfig
+    from human_pose_tpu_torch.train import DeviceBatch, accumulated_classification_train_step
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        argv = [] if dtype == torch.bfloat16 else ["--trainer.accelerator=gpu"]
+        cfg = ClassificationConfig.from_dict(ClassificationConfig.from_yaml_to_dict(
+            str(Path(__file__).resolve().parent / CLS_YAML), argv))
+        module = cfg.create_module(device=dev)
+        n_params = sum(p.numel() for p in module.model.parameters())
+        if module.state.dtype != dtype or n_params != CLS_PARAMS:
+            raise AssertionError(f"classification W32: {module.state.dtype}, {n_params} parameters")
+        n, size = cfg.dataloader.batch_size, cfg.transform.out_size
+        images, labels = cls_batch(n, size, cfg.net.params["num_classes"],
+                                   torch.Generator(device=dev).manual_seed(SEED), dev)
+        batch = DeviceBatch({"images": images, "labels": labels})  # NCHW on the card already
+
+        def step():
+            metrics = module.training_step(batch)
+            torch.cuda.synchronize()
+            return metrics
+
+        lr, opt_params = _cls_sgd(cfg)
+        out.update(batch=n, size=size, params=n_params, lr=lr, optimizer=opt_params)
+        out[name] = timed_steps(step, n, f"classification W32 {name} (batch {n} at {size}^2, SGD)", smi)
+        out[name]["steps"] = module.state.step
+        if dtype == torch.float32:
+            _, acc = accumulated_classification_train_step(2)(module.state, images, labels, module.lr)
+            acc = {k: float(v) for k, v in acc.items()}
+            if not all(np.isfinite(v) for v in acc.values()):
+                raise AssertionError(f"classification: accumulated step metrics {acc}")
+            out["accumulated_2"] = acc
+            log(f"classification float32 accumulated_classification_train_step(2): {acc}")
+        del module, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def classification_cli(dev, tmp: Path, smi: str) -> dict:
+    """The synthesized ImageFolder (``make_imagefolder``) through the port's
+    entry points: the loader's samples a second (yaml's 4 workers, and 8)
+    and host ms a sample; ``bin.train_classification.main`` (W32 from the
+    yaml, bfloat16) for ``CLS_EPOCHS`` epochs to FINISHED; its last.pt
+    through ``bin.eval_classification.main`` in float32 serial and at batch
+    ``CLS_EVAL_BATCH`` (errors equal) and ``bin.inference_classification.main
+    --mode=val`` (an overlay an image); eval img/s serial and batched in
+    float32 and bfloat16 (``evaluate_split``, after a warm-up), the
+    inference model's ms an image at input 256; its float32 probabilities
+    and logits card vs CPU on seeded random weights; the last.pt as HigherHRNet-W32's pretrained weights
+    (``load_params_partial``, as ``Trainer.fit`` loads
+    ``pretrained_ckpt_path``): every backbone parameter. Raises on a miss."""
+    import torch
+
+    from human_pose_tpu_torch.bin import (
+        eval_classification, inference_classification, train_classification,
+    )
+    from human_pose_tpu_torch.configs import ClassificationConfig, KeypointsConfig
+    from human_pose_tpu_torch.data import DataLoader, ImagenetClassificationDataset, collate_classification
+    from human_pose_tpu_torch.data.transforms import ClassificationTransform
+    from human_pose_tpu_torch.ops import prep_images
+    from human_pose_tpu_torch.train import checkpoint
+
+    rng = np.random.default_rng(SEED + 12)
+    root = tmp / "imagenet"
+    out = {"corpus": {"train": make_imagefolder(root, rng, "train", CLS_TRAIN_PER_CLASS),
+                      "val": make_imagefolder(root, rng, "val", CLS_VAL_PER_CLASS)}}
+    yaml_path = str(Path(__file__).resolve().parent / CLS_YAML)
+    roots = [f"--dataloader.train_ds.root={root}", f"--dataloader.val_ds.root={root}"]
+    cfg = ClassificationConfig.from_dict(ClassificationConfig.from_yaml_to_dict(yaml_path, roots))
+
+    # the loader
+    t = ClassificationTransform(out_size=cfg.transform.out_size)
+    ds = ImagenetClassificationDataset(str(root), "train", t.train)
+    rates = {}
+    for workers in (cfg.dataloader.num_workers, 8):
+        dl = DataLoader(ds, cfg.dataloader.batch_size, collate_classification, num_workers=workers,
+                        seed=SEED)
+        loader_rate(dl, 1)  # first touches of the files
+        rates[f"workers_{workers}"] = loader_rate(dl, 2)
+    stage = {"jpeg": 0.0, "crop_flip_normalize": 0.0}
+    for idx in range(32):
+        t0 = time.perf_counter()
+        img = ds.load_image(idx)
+        t1 = time.perf_counter()
+        t.train(img, np.random.default_rng(idx))
+        stage["jpeg"] += (t1 - t0) * 1e3 / 32
+        stage["crop_flip_normalize"] += (time.perf_counter() - t1) * 1e3 / 32
+    out["loader"] = {"samples_per_s": rates, "host_ms_a_sample": stage}
+    log(f"classification loader (batch {cfg.dataloader.batch_size}, {cfg.transform.out_size}^2, "
+        f"{len(ds)} images): samples/s {rates}; host ms a sample {stage}")
+
+    # the training CLI
+    work = tmp / "cls"
+    work.mkdir()
+    t0 = time.perf_counter()
+    with EngineProbe(work):
+        tr = train_classification.main([f"--config={yaml_path}", *roots,
+                                        f"--trainer.max_epochs={CLS_EPOCHS}"])
+    run_s = time.perf_counter() - t0
+    run_dir = work / tr.log_path
+    status = json.loads((run_dir / "tracker" / "run.json").read_text())["status"]
+    last = run_dir / "checkpoints" / "last.pt"
+    steps_an_epoch = len(ds) // cfg.dataloader.batch_size
+    losses = engine_losses(tr)
+    if (status != "FINISHED" or not last.is_file() or tr.module.device != dev
+            or tr.module.state.dtype != torch.bfloat16 or tr.current_step != CLS_EPOCHS * steps_an_epoch
+            or not all(np.isfinite(v) for k in losses["steps"].values() for v in k)):
+        raise AssertionError(f"classification CLI run: {status}, {last.is_file()}, {tr.module.device} "
+                             f"{tr.module.state.dtype}, {tr.current_step} steps, {losses['steps']}")
+    out["train_cli"] = {"seconds": run_s, "status": status, "steps": tr.current_step,
+                        "loss_steps": losses["steps"]["loss"], "val_epochs": losses["epochs"]["loss"]["val"],
+                        "val_top1_error_epochs": losses["epochs"]["top-1_error"]["val"],
+                        "last_pt_mb": last.stat().st_size / 1e6}
+    log(f"classification train CLI (W32, bfloat16, {CLS_EPOCHS} epochs of {steps_an_epoch} batches of "
+        f"{cfg.dataloader.batch_size}): {out['train_cli']}  [{smi}]")
+    del tr
+    torch.cuda.empty_cache()
+
+    # the eval and inference CLIs from last.pt
+    ckpt = [f"--inference.ckpt_path={last}"]
+    with EngineProbe(work):
+        serial = eval_classification.main([f"--config={yaml_path}", *roots, *ckpt, "--trainer.accelerator=gpu"])
+        batched = eval_classification.main([f"--config={yaml_path}", *roots, *ckpt, "--trainer.accelerator=gpu",
+                                            f"--batch_size={CLS_EVAL_BATCH}"])
+        written = inference_classification.main([f"--config={yaml_path}", *roots, *ckpt, "--mode=val"])
+        missing = [str(p) for p in written if not (work / p).is_file()]
+    if serial != batched or serial["n"] != CLS_CLASSES * CLS_VAL_PER_CLASS or len(written) != 8 or missing:
+        raise AssertionError(f"classification eval / inference CLI: serial {serial}, batched {batched}, "
+                             f"{len(written)} overlays, missing {missing}")
+    out["eval_cli"] = {"serial": serial, "batched": batched, "overlays": len(written)}
+    log(f"classification eval CLI (float32, last.pt): serial {serial} == batch {CLS_EVAL_BATCH} {batched}; "
+        f"inference CLI wrote {len(written)} overlays")
+
+    # eval img/s and the inference model's ms an image
+    val = ImagenetClassificationDataset(str(root), "val")
+    n_val = len(val)
+    raw = val.load_image(0)
+    speed = {}
+    for name, argv in (("float32", ["--trainer.accelerator=gpu"]), ("bfloat16", [])):
+        c = ClassificationConfig.from_dict(ClassificationConfig.from_yaml_to_dict(yaml_path, [*roots, *argv]))
+        model = c.create_inference_model(ckpt_path=str(last))
+        rec = {}
+        for bs in (1, CLS_EVAL_BATCH):
+            eval_classification.evaluate_split(model, val, n_val, bs)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec[f"stats_bs{bs}"] = eval_classification.evaluate_split(model, val, n_val, bs)
+            rec[f"img_per_s_bs{bs}"] = n_val / (time.perf_counter() - t0)
+        model(raw)
+        rec["ms_an_image"] = host_ms(lambda: model(raw), CLS_INFER_CALLS)
+        x = model.to_device(model.transform.inference(raw)[None])
+        rec["device_ms_an_image"] = cuda_ms(lambda: model.probs(x), iters=10, warmup=2)
+        rec["input_size"] = model.transform.out_size
+        speed[name] = rec
+        log(f"classification inference {name} (W32, input {rec['input_size']}): {rec['ms_an_image']:.2f} ms an "
+            f"image through __call__ (a {raw.shape[0]}x{raw.shape[1]} raw image; forward+softmax "
+            f"{rec['device_ms_an_image']:.2f} ms between CUDA events); eval img/s serial "
+            f"{rec['img_per_s_bs1']:.2f}, batch {CLS_EVAL_BATCH} {rec[f'img_per_s_bs{CLS_EVAL_BATCH}']:.2f}  [{smi}]")
+        del model
+    # card vs CPU on seeded random weights (flax's default init): the last.pt
+    # of a four-step run saturates its softmax in eval mode (BatchNorm's
+    # running statistics have barely moved), which would hide a difference
+    c = ClassificationConfig.from_dict(ClassificationConfig.from_yaml_to_dict(
+        yaml_path, [*roots, "--trainer.accelerator=gpu", "--inference.ckpt_path=null"]))
+    card, cpu = (c.create_inference_model(device=where) for where in (dev, "cpu"))
+    got, want = card(raw).probs, cpu(raw).probs
+    err = float(np.abs(got - want).max())
+    # W32's logits on random weights reach a scale where the softmax is one-hot,
+    # so the logits themselves are held too (rel 1e-3, the main path's rule)
+    x = card.to_device(card.transform.inference(raw)[None])
+    with torch.no_grad():
+        logits_card, logits_cpu = card.model(prep_images(x)).cpu(), cpu.model(prep_images(x.cpu()))
+    logits_rel = float((logits_card - logits_cpu).abs().max() / logits_cpu.abs().max())
+    speed["float32"].update(probs_card_vs_cpu_abs=err, probs_top=float(want.max()),
+                            logits_card_vs_cpu_rel=logits_rel,
+                            logits_abs_max=float(logits_cpu.abs().max()))
+    if not (err <= 1e-5 and logits_rel <= 1e-3):  # NaN fails too
+        raise AssertionError(f"classification inference float32 card vs CPU: probabilities {err}, "
+                             f"logits {logits_rel}")
+    log(f"classification inference float32, seeded random weights: card == CPU probabilities within "
+        f"{err:.3g} (the top one {float(want.max()):.4g}), logits within {logits_rel:.3g} of their "
+        f"largest ({float(logits_cpu.abs().max()):.4g})")
+    del card, cpu
+    out["inference"] = speed
+
+    # the two-stage hand-off
+    kcfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(
+        str(Path(__file__).resolve().parent / TRAIN_YAML), []))
+    net = kcfg.create_net(device=dev)
+    loaded = checkpoint.load_params_partial(net, last)
+    saved = checkpoint.load_checkpoint(last)["module"]["model"]
+    backbone = [n for n, _ in net.named_parameters() if n.startswith("backbone.")]
+    differ = [n for n, p in net.named_parameters()
+              if n.startswith("backbone.") and not torch.equal(p.detach().cpu(), saved[n])]
+    if loaded != len(backbone) or differ:
+        raise AssertionError(f"classification last.pt into HigherHRNet-W32: {loaded} loaded of "
+                             f"{len(backbone)} backbone tensors, {len(differ)} differ")
+    out["handoff"] = {"loaded": loaded, "backbone_tensors": len(backbone),
+                      "higher_hrnet_tensors": sum(1 for _ in net.parameters())}
+    log(f"classification last.pt as HigherHRNet-W32's pretrained weights: {out['handoff']}")
+    return out
+
+
+def classification_phase(dev, counted, smi: str) -> dict:
+    """Phase 12: ImageNet classification on the card. (1) the reduced step
+    card vs CPU at each of ``CLS_REDUCED_BATCHES``
+    (``classification_step_card_vs_cpu``); (2) W32 from
+    ``CLS_YAML`` at its published point in float32 and bfloat16
+    (``classification_steps``); (3) the synthesized ImageFolder through the
+    loader and the three classification CLIs, the inference model and the
+    hand-off to HigherHRNet (``classification_cli``). All of it with every
+    kernel's launch counter zeroed before and required at 0 after: no
+    kernel of the port lies on the classification path."""
+    import tempfile
+
+    out = {"card": smi}
+
+    def run():
+        out["card_vs_cpu"] = {b: classification_step_card_vs_cpu(dev, b) for b in CLS_REDUCED_BATCHES}
+        out["steps"] = classification_steps(dev, smi)
+        with tempfile.TemporaryDirectory() as tmp:
+            out.update(classification_cli(dev, Path(tmp), smi))
+
+    t0 = time.perf_counter()
+    _, out["launches"] = counted(run, "phase 12 (classification: reduced card vs CPU, W32 float32 and "
+                                      "bfloat16 steps, the CLIs, inference, the hand-off)", {})
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def classification_only(dev, smi: str) -> int:
+    """Phase 12 alone: no kernel is built (none lies on the classification
+    path); every kernel's launch counter is still required to stay at 0.
+    Prints the phase's record as one JSON object last."""
+    counted = make_counted(kernel_counters())
+    print(json.dumps({"classification": classification_phase(dev, counted, smi)}), flush=True)
+    return 0
+
+
 def refine_only(dev, rng, smi: str) -> int:
     """The short loop for the dense refine: build, SASS counts, parity, then
     its time on the main path's and the dense scene's inputs and over a
@@ -2860,6 +3387,8 @@ def main() -> int:
                         help="build the decode's kernels and run the training engine's phase alone "
                              "(the W32 run through the training CLI, its resume, inference from its "
                              "last.pt, the engine's timing, the reduced run card vs CPU)")
+    parser.add_argument("--classification-only", action="store_true",
+                        help="run the ImageNet classification phase alone (it builds no kernel)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -2911,6 +3440,8 @@ def main() -> int:
         return train_data_only(dev, smi)
     if args.train_engine_only:
         return train_engine_only(dev, smi)
+    if args.classification_only:
+        return classification_only(dev, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -3135,6 +3666,9 @@ def main() -> int:
     # 11. the training engine
     train_engine_rec = train_engine_phase(dev, counted, smi, train_data_rec)
 
+    # 12. ImageNet classification
+    cls_rec = classification_phase(dev, counted, smi)
+
     # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
     dense_in = record_kernel_inputs(decode_dense)
@@ -3145,7 +3679,8 @@ def main() -> int:
              **{f"infer_{key}": rec["launches"] for key, rec in infer_rec["configs"].items()},
              **{f"eval_bs{bs}": c for bs, c in eval_rec["launches"].items()},
              "train_data_val": train_data_rec["launches"],
-             "train_engine": train_engine_rec["launches"]}
+             "train_engine": train_engine_rec["launches"],
+             "classification": cls_rec["launches"]}
 
     def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
         return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
@@ -3260,6 +3795,7 @@ def main() -> int:
     print(json.dumps({"train": train_rec}), flush=True)
     print(json.dumps({"train_data": train_data_rec}), flush=True)
     print(json.dumps({"train_engine": train_engine_rec}), flush=True)
+    print(json.dumps({"classification": cls_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

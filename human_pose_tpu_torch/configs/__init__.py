@@ -1,6 +1,5 @@
-"""Configs: the yaml + ``--a.b.c=v`` plumbing and the keypoints config
-(port of human_pose_tpu/configs). ``ClassificationConfig`` comes with the
-port's classification, ROADMAP module 12."""
+"""Configs: the yaml + ``--a.b.c=v`` plumbing and the classification and
+keypoints configs (port of human_pose_tpu/configs)."""
 
 from .base import (
     BaseConfig,
@@ -13,6 +12,7 @@ from .base import (
     TrainerConfig,
     TransformConfig,
 )
+from .classification import ClassificationConfig, ClassificationTransformConfig
 from .cli import parse_args_for_config, parse_cli_value, update_config, update_dict
 from .keypoints import KeypointsConfig, KeypointsTransformConfig
 from .structured import structure, unstructure
@@ -27,6 +27,8 @@ __all__ = [
     "ModuleConfig",
     "NetConfig",
     "InferenceConfig",
+    "ClassificationConfig",
+    "ClassificationTransformConfig",
     "KeypointsConfig",
     "KeypointsTransformConfig",
     "structure",

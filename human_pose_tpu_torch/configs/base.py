@@ -256,6 +256,17 @@ class BaseConfig:
         return int(pm)
 
     # -- runtime helpers --------------------------------------------------------
+    def compute_dtype(self) -> torch.dtype:
+        """The JAX package's rule for the same yaml: bfloat16 where
+        ``trainer.accelerator`` is "tpu" (every yaml of the repo), else
+        float32."""
+        return torch.bfloat16 if self.trainer.accelerator == "tpu" else torch.float32
+
+    def target_device(self) -> str:
+        """The CPU only when ``trainer.accelerator`` is "cpu"; the card
+        otherwise."""
+        return "cpu" if self.trainer.accelerator == "cpu" else "cuda"
+
     def initialize_logging(self) -> None:
         """Tag the console log with the device (``GPU:{rank}`` on the card,
         ``CPU:{rank}`` on the CPU) and add this process's file log

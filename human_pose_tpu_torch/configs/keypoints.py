@@ -33,17 +33,6 @@ class KeypointsTransformConfig(TransformConfig):
 class KeypointsConfig(BaseConfig):
     transform: KeypointsTransformConfig = field(default_factory=KeypointsTransformConfig)
 
-    def compute_dtype(self) -> torch.dtype:
-        """The JAX package's rule for the same yaml: bfloat16 where
-        ``trainer.accelerator`` is "tpu" (every yaml of the repo), else
-        float32."""
-        return torch.bfloat16 if self.trainer.accelerator == "tpu" else torch.float32
-
-    def target_device(self) -> str:
-        """The CPU only when ``trainer.accelerator`` is "cpu"; the card
-        otherwise."""
-        return "cpu" if self.trainer.accelerator == "cpu" else "cuda"
-
     def create_net(self, bn_groups: int = 1, device=None):
         """The port's network for ``setup.architecture`` (default
         HigherHRNet) from ``net.params``, on ``device`` (default

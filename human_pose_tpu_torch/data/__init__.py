@@ -1,7 +1,9 @@
 """Host-side data code (NumPy; cv2 imported where it is used): the affine
-math, normalization and the keypoints training augmentations, the heatmap
-and joints targets (with the native splat), COCO masks, the COCO dataset
-with its mosaic and ``collate``, the loader, directory and video datasets."""
+math, normalization, the keypoints training augmentations and the
+classification crops, the heatmap and joints targets (with the native
+splat), COCO masks, the COCO dataset with its mosaic and ``collate``, the
+ImageNet dataset and ``collate_classification``, the loader, directory and
+video datasets."""
 
 from .affine import (
     affine_transform_point,
@@ -20,18 +22,23 @@ from .coco import (
     get_coco_joints,
     prebake_annotations,
 )
+from .imagenet import ImagenetClassificationDataset, collate_classification
 from .loader import DataLoader
 from .rle import get_crowd_mask, polygons_to_mask, segmentation_to_mask
 from .targets import HeatmapGenerator, JointsGenerator
 from .transforms import (
     COCO_FLIP_INDEX,
+    ClassificationTransform,
     ComposeKeypointsTransform,
     KeypointsTransform,
     NormalizeKeypoints,
     RandomAffineTransform,
     RandomHorizontalFlip,
+    center_crop,
     inverse_normalize,
     normalize,
+    random_resized_crop,
+    resize_short,
 )
 from .video import InferenceVideoDataset, VideoProcessingResult
 
@@ -40,12 +47,14 @@ __all__ = [
     "COCO_FLIP_INDEX",
     "COCO_LABELS",
     "COCO_LIMBS",
+    "ClassificationTransform",
     "CocoKeypointsDataset",
     "ComposeKeypointsTransform",
     "DataLoader",
     "DirectoryDataset",
     "ExplorerDataset",
     "HeatmapGenerator",
+    "ImagenetClassificationDataset",
     "InferenceDataset",
     "InferenceVideoDataset",
     "JointsGenerator",
@@ -55,7 +64,9 @@ __all__ = [
     "RandomHorizontalFlip",
     "VideoProcessingResult",
     "affine_transform_point",
+    "center_crop",
     "collate",
+    "collate_classification",
     "get_affine_transform",
     "get_aug_affine_matrix",
     "get_coco_joints",
@@ -65,7 +76,9 @@ __all__ = [
     "normalize",
     "polygons_to_mask",
     "prebake_annotations",
+    "random_resized_crop",
     "resize_align_multi_scale",
+    "resize_short",
     "segmentation_to_mask",
     "transform_coords_inverse",
 ]

@@ -1,7 +1,5 @@
 """Host-side data transforms, NumPy and cv2 (cv2 imported where it is used),
-channel-last outputs (port of the keypoints half of
-human_pose_tpu/data/transforms.py; the classification transforms come with
-the classification model, ROADMAP module 12).
+channel-last outputs (port of human_pose_tpu/data/transforms.py).
 
 * ``normalize`` / ``inverse_normalize``: uint8 HWC <-> float32 HWC with the
   ImageNet mean and std.
@@ -13,6 +11,12 @@ the classification model, ROADMAP module 12).
   with its train and inference pipelines. Every random draw comes from the
   per-sample ``rng``, in the JAX package's order, so one seed gives the
   same sample bit for bit.
+* classification (reference src/classification/transforms.py):
+  ``random_resized_crop`` (10 tries of a scale and a log-uniform aspect,
+  then a center crop of the short-side resize) and a horizontal flip for
+  training; ``resize_short`` to ``size / 0.875`` and ``center_crop`` for
+  inference; ``ClassificationTransform``. The same draws in the same order
+  as the JAX package's, so crops equal its bit for bit.
 """
 
 from __future__ import annotations
@@ -178,6 +182,86 @@ class KeypointsTransform:
             [RandomAffineTransform(out_size, hm_sizes, 0, 1, 1, scale_type, 0)]
             + tail
         )
+
+    @staticmethod
+    def inverse_transform(image: np.ndarray) -> np.ndarray:
+        return inverse_normalize(image)
+
+
+# -- classification ---------------------------------------------------------------------
+
+def random_resized_crop(image: np.ndarray, size: int, rng: np.random.Generator, scale=(0.08, 1.0),
+                        ratio=(3 / 4, 4 / 3)) -> np.ndarray:
+    """A crop of a random area share (``scale``) and aspect (log-uniform in
+    ``ratio``) resized to ``size`` x ``size``; after 10 tries that do not
+    fit, the center crop of the short-side resize."""
+    import cv2
+
+    h, w = image.shape[:2]
+    area = h * w
+    for _ in range(10):
+        target_area = rng.uniform(*scale) * area
+        log_ratio = (np.log(ratio[0]), np.log(ratio[1]))
+        aspect = np.exp(rng.uniform(*log_ratio))
+        cw = int(round(np.sqrt(target_area * aspect)))
+        ch = int(round(np.sqrt(target_area / aspect)))
+        if 0 < cw <= w and 0 < ch <= h:
+            x0 = int(rng.integers(0, w - cw + 1))
+            y0 = int(rng.integers(0, h - ch + 1))
+            crop = image[y0 : y0 + ch, x0 : x0 + cw]
+            return cv2.resize(crop, (size, size), interpolation=cv2.INTER_LINEAR)
+    return center_crop(resize_short(image, size), size)
+
+
+def resize_short(image: np.ndarray, size: int) -> np.ndarray:
+    """Bilinear resize so that the short side is ``size``."""
+    import cv2
+
+    h, w = image.shape[:2]
+    if h < w:
+        nh, nw = size, int(round(w * size / h))
+    else:
+        nh, nw = int(round(h * size / w)), size
+    return cv2.resize(image, (nw, nh), interpolation=cv2.INTER_LINEAR)
+
+
+def center_crop(image: np.ndarray, size: int) -> np.ndarray:
+    h, w = image.shape[:2]
+    y0 = max(0, (h - size) // 2)
+    x0 = max(0, (w - size) // 2)
+    return image[y0 : y0 + size, x0 : x0 + size]
+
+
+class ClassificationTransform:
+    """Reference src/classification/transforms.py:7-31."""
+
+    def __init__(self, out_size: int = 224, mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                 normalize: bool = True):
+        """``normalize=False`` ships uint8 crops and normalizes on the device
+        (``prep_images``): the compact contract of ``KeypointsTransform``."""
+        self.out_size = out_size
+        self.mean, self.std = mean, std
+        self.normalize = normalize
+
+    def _finish(self, img: np.ndarray) -> np.ndarray:
+        if self.normalize:
+            return normalize(img, self.mean, self.std)
+        if img.dtype != np.uint8:
+            # the device-side prep passes floats through UN-normalized
+            raise ValueError(f"normalize=False (compact) requires uint8 images, got {img.dtype}")
+        return img
+
+    def train(self, image: np.ndarray, rng: np.random.Generator | None = None) -> np.ndarray:
+        if rng is None:
+            rng = np.random.default_rng()
+        img = random_resized_crop(image, self.out_size, rng)
+        if rng.random() < 0.5:
+            img = np.ascontiguousarray(img[:, ::-1])
+        return self._finish(img)
+
+    def inference(self, image: np.ndarray, rng=None) -> np.ndarray:
+        img = resize_short(image, int(self.out_size / 0.875))
+        return self._finish(center_crop(img, self.out_size))
 
     @staticmethod
     def inverse_transform(image: np.ndarray) -> np.ndarray:

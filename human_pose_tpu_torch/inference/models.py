@@ -1,12 +1,15 @@
-"""The keypoints inference model: host preprocess + device forward/decode
-(port of ``InferenceKeypointsModel`` of human_pose_tpu/inference/models.py).
+"""The inference models: host preprocess + device forward (and decode)
+(port of ``InferenceKeypointsModel`` and ``InferenceClassificationModel`` of
+human_pose_tpu/inference/models.py).
 
 Counterpart of reference src/keypoints/model.py:43-111: 64-aligned resize,
 flip and multi-scale TTA, the AE decode, the inverse affine back to the raw
 image. The forward, the flip forward, the stage aggregation, the resizes and
 the decode run on the model's device (the decode's grouping and refine as
 the CUDA kernels of ``ops`` on a card); the host prepares the input and
-receives what the result object needs.
+receives what the result object needs. The classification model resizes
+and center-crops on the host and runs the forward and the softmax on the
+device.
 """
 
 from __future__ import annotations
@@ -20,14 +23,14 @@ from torch import nn
 from ..constants import PAD_PIXEL_U8
 from ..data.affine import resize_align_multi_scale
 from ..data.coco import COCO_LIMBS
-from ..data.transforms import inverse_normalize, normalize
+from ..data.transforms import ClassificationTransform, inverse_normalize, normalize
 from ..device import resolve_device
 from ..ops.decode import decode_batch
 from ..ops.flip import flip_back, merge_flip_heatmaps
 from ..ops.heatmaps import average_stages, resize_bilinear
 from ..ops.images import prep_images
 from ..utils.weights import read_state_dict
-from .results import InferenceKeypointsResult
+from .results import ClassificationResult, InferenceKeypointsResult
 
 
 def load_inference_weights(path: str | Path) -> dict[str, torch.Tensor]:
@@ -64,6 +67,16 @@ def mask_pad_region(avg: torch.Tensor, valid_hw) -> torch.Tensor:
                        torch.tensor(-1e4, dtype=avg.dtype, device=avg.device))
 
 
+def _model_device(model: nn.Module, device) -> torch.device:
+    """The device of ``model``'s parameters, which must be ``device``
+    (resolved: the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    model_device = next(model.parameters()).device
+    if model_device.type != dev.type or (dev.index is not None and model_device != dev):
+        raise ValueError(f"model is on {model_device}, not on {dev}")
+    return model_device
+
+
 class InferenceKeypointsModel:
     limbs = COCO_LIMBS
 
@@ -97,11 +110,7 @@ class InferenceKeypointsModel:
                 "parallelism, ROADMAP module 14")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
-        dev = resolve_device(device)
-        model_device = next(model.parameters()).device
-        if model_device.type != dev.type or (dev.index is not None and model_device != dev):
-            raise ValueError(f"model is on {model_device}, not on {dev}")
-        self.device = model_device
+        self.device = _model_device(model, device)
         self.model = model
         self.dtype = dtype
         self.det_thr = det_thr
@@ -202,10 +211,7 @@ class InferenceKeypointsModel:
         """A host ``[N, H, W, 3]`` batch as ``[N, 3, H, W]`` on the model's
         device: uint8 stays uint8 (normalized on the device), floats as
         float32 (autocast casts them for a bfloat16 forward)."""
-        x = torch.from_numpy(np.ascontiguousarray(xs)).permute(0, 3, 1, 2)
-        if x.dtype != torch.uint8:
-            x = x.to(torch.float32)
-        return x.contiguous().to(self.device)
+        return _to_device(xs, self.device)
 
     def __call__(self, raw_image: np.ndarray, annot=None, scales=None) -> InferenceKeypointsResult:
         """Single- or multi-scale (e.g. scales=(0.5, 1, 2)) TTA inference.
@@ -263,3 +269,51 @@ class InferenceKeypointsModel:
             tag_thr=self.tag_thr,
             limbs=self.limbs,
         )
+
+
+def _to_device(xs: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host ``[N, H, W, 3]`` batch as ``[N, 3, H, W]`` on ``device``:
+    uint8 stays uint8 (normalized on the device), floats as float32."""
+    x = torch.from_numpy(np.ascontiguousarray(xs)).permute(0, 3, 1, 2)
+    if x.dtype != torch.uint8:
+        x = x.to(torch.float32)
+    return x.contiguous().to(device)
+
+
+class InferenceClassificationModel:
+    def __init__(self, model: nn.Module, labels: list[str] | None = None, input_size: int = 224,
+                 compact_inputs: bool = False, dtype: torch.dtype = torch.float32,
+                 device: str | torch.device = "cuda"):
+        """``model`` is the port's ``ClassificationHRNet`` in eval mode,
+        already on ``device`` (default ``"cuda"``: raises without a card).
+        The host resizes the short side to ``input_size / 0.875`` and
+        center-crops ``input_size``; ``compact_inputs`` ships the uint8 crop
+        and normalizes on the device. ``dtype`` bfloat16 runs the forward
+        under ``torch.autocast`` (logits and probabilities stay float32)."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        self.device = _model_device(model, device)
+        self.model = model
+        self.dtype = dtype
+        self.labels = labels or [str(i) for i in range(1000)]
+        self.transform = ClassificationTransform(out_size=input_size, normalize=not compact_inputs)
+
+    def to_device(self, xs: np.ndarray) -> torch.Tensor:
+        return _to_device(xs, self.device)
+
+    @torch.no_grad()
+    def probs(self, x: torch.Tensor) -> torch.Tensor:
+        """Class probabilities ``[N, num_classes]`` float32 of a device batch
+        ``[N, 3, H, W]`` (uint8 or normalized float), on the device."""
+        x = prep_images(x)
+        if self.dtype == torch.float32:
+            logits = self.model(x)
+        else:
+            with torch.autocast(self.device.type, dtype=self.dtype):
+                logits = self.model(x)
+        return torch.softmax(logits, dim=-1)
+
+    def __call__(self, raw_image: np.ndarray, target: int | None = None) -> ClassificationResult:
+        x = self.transform.inference(raw_image)
+        probs = self.probs(self.to_device(x[None]))[0].cpu().numpy()
+        return ClassificationResult(image=x, probs=probs, labels=self.labels, target=target)

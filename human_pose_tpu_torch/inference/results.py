@@ -4,7 +4,8 @@ in, channel-last maps; cv2 imported where it is used).
 
 Counterpart of reference src/keypoints/results.py (KeypointsResult for
 val-time plotting, InferenceKeypointsResult with inverse-affine coordinate
-mapping and OKS). The classification result comes with classification.
+mapping and OKS) and of reference src/classification/results.py
+(ClassificationResult: the top-5 probabilities over the input).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..data.coco import COCO_LIMBS
 from ..data.transforms import inverse_normalize
 from ..metrics.oks import image_OKS, match_preds_to_targets
 from ..utils.image import make_grid, match_size_to_src, stack_horizontally
-from .visualization import plot_connections, plot_grouped_ae_tags, plot_heatmaps
+from .visualization import plot_connections, plot_grouped_ae_tags, plot_heatmaps, plot_top_probs
 
 
 @dataclass
@@ -175,3 +176,14 @@ class InferenceKeypointsResult:
             "associative_embedding": ae_plot,
         }
 
+
+
+@dataclass
+class ClassificationResult:
+    image: np.ndarray  # model input, HWC: normalized float32, or uint8 (compact)
+    probs: np.ndarray  # [num_classes]
+    labels: list[str]
+    target: int | None = None
+
+    def plot(self) -> dict[str, np.ndarray]:
+        return {"top_probs": plot_top_probs(inverse_normalize(self.image), self.probs, self.labels)}

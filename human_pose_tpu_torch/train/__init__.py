@@ -1,10 +1,9 @@
-"""Keypoints training (port of human_pose_tpu/train/): the pose losses, the
-train state, the optimizers and schedulers, the train, validation and
-gradient-accumulation steps, the task modules (``KeypointsModule``), the
-device prefetch, and the engine: ``Trainer`` and ``DataModule``, the
-callbacks, checkpoints, meters and metric storage, and the metric plots.
-The classification loss, steps and module come with the classification
-model (ROADMAP module 12)."""
+"""Training (port of human_pose_tpu/train/): the classification and pose
+losses, the train state, the optimizers and schedulers, the train,
+validation and gradient-accumulation steps of both tasks, the task modules
+(``ClassificationModule``, ``KeypointsModule``), the device prefetch, and
+the engine: ``Trainer`` and ``DataModule``, the callbacks, checkpoints,
+meters and metric storage, and the metric plots."""
 
 from .callbacks import (
     ArtifactsLoggerCallback,
@@ -27,18 +26,25 @@ from .checkpoint import (
     load_train_state,
     save_checkpoint,
 )
-from .losses import TAG_LOSS_WEIGHT, ae_grouping_loss, ae_keypoints_loss, heatmaps_loss
+from .losses import (
+    TAG_LOSS_WEIGHT, ae_grouping_loss, ae_keypoints_loss, classification_loss, heatmaps_loss,
+)
 from .meters import AverageMeter, Meters
 from .module import BaseModule, ClassificationModule, KeypointsModule, metrics_to_host
 from .optim import LRScheduler, create_lr_scheduler, create_optimizer, set_learning_rate
 from .prefetch import DeviceBatch, DevicePrefetcher, host_batch_to_device
 from .state import TrainState
-from .steps import accumulated_keypoints_train_step, keypoints_train_step, keypoints_val_step
+from .steps import (
+    accumulated_classification_train_step, accumulated_keypoints_train_step,
+    classification_train_step, classification_val_step, keypoints_train_step, keypoints_val_step,
+    topk_error,
+)
 from .storage import MetricsStorage, SystemMonitoringStorage
 from .trainer import DataModule, Trainer
 
 __all__ = [
     "TrainState",
+    "classification_loss",
     "heatmaps_loss",
     "ae_grouping_loss",
     "ae_keypoints_loss",
@@ -47,7 +53,11 @@ __all__ = [
     "create_lr_scheduler",
     "set_learning_rate",
     "LRScheduler",
+    "accumulated_classification_train_step",
     "accumulated_keypoints_train_step",
+    "classification_train_step",
+    "classification_val_step",
+    "topk_error",
     "keypoints_train_step",
     "keypoints_val_step",
     "BaseModule",

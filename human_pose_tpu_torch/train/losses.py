@@ -1,5 +1,7 @@
-"""Keypoints training losses, NCHW (port of human_pose_tpu/train/losses.py).
+"""Training losses, NCHW (port of human_pose_tpu/train/losses.py).
 
+* ``classification_loss``: the mean softmax cross entropy of integer
+  labels, the log-softmax in float32;
 * ``heatmaps_loss``: crowd-masked MSE over the keypoint heatmaps of one
   stage, mean over every element.
 * ``ae_grouping_loss``: the associative-embedding push and pull. Tags are
@@ -12,7 +14,7 @@
   ``TAG_LOSS_WEIGHT * (push + pull)``.
 
 Joints are ``[N, P, K, 3]`` int32 ``(x, y, vis)`` at 1/4-resolution
-coordinates, padded with vis 0. Everything is float32.
+coordinates, padded with vis 0. Every loss is float32.
 """
 
 from __future__ import annotations
@@ -20,6 +22,12 @@ from __future__ import annotations
 import torch
 
 TAG_LOSS_WEIGHT = 1e-3
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean NLL of ``labels`` ``[N]`` under ``log_softmax(logits [N, C])``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[:, None])[:, 0].mean()
 
 
 def heatmaps_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

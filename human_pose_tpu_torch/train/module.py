@@ -22,11 +22,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..models import init_keypoints_weights_
+from ..models import init_classification_weights_, init_keypoints_weights_
 from .optim import LRScheduler, create_lr_scheduler, create_optimizer
 from .prefetch import DeviceBatch, host_batch_to_device
 from .state import TrainState
-from .steps import accumulated_keypoints_train_step, keypoints_train_step, keypoints_val_step
+from .steps import (
+    accumulated_classification_train_step, accumulated_keypoints_train_step,
+    classification_train_step, classification_val_step, keypoints_train_step, keypoints_val_step,
+)
 
 # the JAX package's val-time decode thresholds (reference keypoints/module.py:95-99)
 VAL_DET_THR, VAL_TAG_THR = 0.1, 1.0
@@ -128,9 +131,52 @@ class BaseModule:
 class ClassificationModule(BaseModule):
     name = "classification"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the classification module comes with the port's classification "
-                                  "model, ROADMAP module 12")
+    @classmethod
+    def create(cls, model, optimizers_cfg=None, lr_schedulers_cfg=None, seed=42, mesh=None,
+               **kw) -> "ClassificationModule":
+        """SGD at lr 0.1 unless the dicts say otherwise; the classification
+        init (``init_classification_weights_``)."""
+        return super().create(
+            model,
+            optimizers_cfg or {"optim": {"name": "SGD", "params": {"lr": 0.1}}},
+            lr_schedulers_cfg or {},
+            seed=seed, init_weights=init_classification_weights_, mesh=mesh, **kw,
+        )
+
+    def training_step(self, batch: dict) -> dict:
+        batch = self.batch_to_device(batch)
+        if self.accumulate_grad_batches > 1:
+            step = accumulated_classification_train_step(self.accumulate_grad_batches)
+        else:
+            step = classification_train_step
+        self.state, metrics = step(self.state, batch["images"], batch["labels"], self.lr)
+        self.on_step_end()
+        return metrics
+
+    def validation_step(self, batch: dict):
+        batch = self.batch_to_device(batch)
+        return classification_val_step(self.state, batch["images"], batch["labels"])
+
+    def make_results(self, batch: dict, outputs, max_results: int = 8) -> list:
+        """The first ``max_results`` samples of a val batch as plottable
+        results: the softmax of their logits on the host (float32 NumPy, as
+        the JAX package), labels named by index. ``batch`` is the host batch
+        the val step took (channel-last) or a ``DeviceBatch`` (NCHW)."""
+        from ..inference.results import ClassificationResult
+
+        logits = outputs.float().cpu().numpy()
+        n = min(max_results, logits.shape[0])
+        e = np.exp(logits[:n] - logits[:n].max(-1, keepdims=True))
+        probs = e / e.sum(-1, keepdims=True)
+        images, targets = batch["images"][:n], batch["labels"][:n]
+        if isinstance(batch, DeviceBatch):
+            images = images.permute(0, 2, 3, 1)
+        images = images.cpu().numpy() if torch.is_tensor(images) else np.asarray(images)
+        targets = targets.cpu().numpy() if torch.is_tensor(targets) else np.asarray(targets)
+        labels = [str(i) for i in range(logits.shape[-1])]
+        return [ClassificationResult(image=images[i], probs=probs[i], labels=labels,
+                                     target=int(targets[i]))
+                for i in range(n)]
 
 
 class KeypointsModule(BaseModule):

@@ -1,9 +1,9 @@
-"""Keypoints train and validation steps (port of human_pose_tpu/train/steps.py).
+"""Train and validation steps (port of human_pose_tpu/train/steps.py).
 
 A step takes the learning rate as an argument (``set_learning_rate``; the
 schedulers of ``train/optim.py`` run on the host), moves the batch to the
 state's device, normalizes uint8 images there (``prep_images``), runs the
-model in train mode, the pose loss, the backward and one optimizer update.
+model in train mode, the task's loss, the backward and one optimizer update.
 It returns ``(state, metrics)``: the same state, updated in place, and a
 dict of 0-dim device tensors (no ``.item()``, so no host sync).
 
@@ -12,9 +12,11 @@ The compute dtype is the state's: float32, or bfloat16 under
 state, and no ``GradScaler`` (bf16 has float32's exponent range), as the
 JAX package's bf16 policy does.
 
-batch: ``images`` ``[N, 3, H, W]`` uint8 or float, ``heatmaps`` a list of
-``[N, K, h, w]`` per stage, ``masks`` a list of ``[N, h, w]``, ``joints``
-``[N, P, K, 3]`` int32 at 1/4-resolution coordinates, padded with vis 0.
+* classification: ``images`` ``[N, 3, H, W]`` uint8 or float and
+  ``labels`` ``[N]`` int; cross entropy and the top-1 and top-5 errors.
+* keypoints: batch ``images`` as above, ``heatmaps`` a list of
+  ``[N, K, h, w]`` per stage, ``masks`` a list of ``[N, h, w]``, ``joints``
+  ``[N, P, K, 3]`` int32 at 1/4-resolution coordinates, padded with vis 0.
 """
 
 from __future__ import annotations
@@ -23,12 +25,15 @@ import contextlib
 
 import torch
 
+from ..ops.grouping import _top_k
 from ..ops.images import prep_images
-from .losses import ae_keypoints_loss
+from .losses import ae_keypoints_loss, classification_loss
 from .optim import set_learning_rate
 from .state import TrainState
 
-__all__ = ["accumulated_keypoints_train_step", "keypoints_train_step", "keypoints_val_step"]
+__all__ = ["accumulated_classification_train_step", "accumulated_keypoints_train_step",
+           "classification_train_step", "classification_val_step", "keypoints_train_step",
+           "keypoints_val_step", "topk_error"]
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -42,6 +47,71 @@ def _compute(state: TrainState):
         return contextlib.nullcontext()
     return torch.autocast(state.device.type, dtype=state.dtype)
 
+
+def topk_error(logits: torch.Tensor, labels: torch.Tensor, k: int) -> torch.Tensor:
+    """The share of rows whose label is not among the ``k`` largest logits;
+    ties go to the lowest index, as ``jax.lax.top_k`` (a stable sort, not
+    ``torch.topk``)."""
+    _, idx = _top_k(logits, min(k, logits.shape[-1]))
+    correct = (idx == labels[:, None]).any(1)
+    return 1.0 - correct.float().mean()
+
+
+# -- classification -------------------------------------------------------------------
+
+def _classification_metrics(logits: torch.Tensor, labels: torch.Tensor):
+    loss = classification_loss(logits, labels)
+    with torch.no_grad():
+        return loss, {"loss": loss.detach(), "top-1_error": topk_error(logits, labels, 1),
+                      "top-5_error": topk_error(logits, labels, 5)}
+
+
+def _classification_backward(state: TrainState, batch: dict) -> dict:
+    """Forward in train mode, cross entropy and backward for one
+    (micro)batch ``{"images", "labels"}``; the gradients add into ``.grad``.
+    Returns the detached metrics."""
+    state.model.train()
+    with _compute(state):
+        logits = state.model(prep_images(batch["images"]))
+    loss, metrics = _classification_metrics(logits, batch["labels"])
+    loss.backward()
+    return metrics
+
+
+def classification_train_step(state: TrainState, images, labels, lr):
+    """One update on ``(images, labels)``. Returns ``(state, metrics)``:
+    metrics ``loss``, ``top-1_error``, ``top-5_error``."""
+    batch = _to_device({"images": images, "labels": labels}, state.device)
+    state.optimizer.zero_grad(set_to_none=True)
+    metrics = _classification_backward(state, batch)
+    _update(state, lr)
+    return state, metrics
+
+
+@torch.no_grad()
+def classification_val_step(state: TrainState, images, labels):
+    """Eval-mode forward, the loss and the errors. Returns ``(metrics,
+    logits)``, logits ``[N, num_classes]`` float32."""
+    batch = _to_device({"images": images, "labels": labels}, state.device)
+    state.model.eval()
+    with _compute(state):
+        logits = state.model(prep_images(batch["images"]))
+    _, metrics = _classification_metrics(logits, batch["labels"])
+    return metrics, logits
+
+
+def accumulated_classification_train_step(n_micro: int):
+    """A classification step averaging the gradients of ``n_micro``
+    microbatches (see ``accumulated_keypoints_train_step``)."""
+
+    def step(state: TrainState, images, labels, lr):
+        batch = _to_device({"images": images, "labels": labels}, state.device)
+        return _accumulated(state, _split_micro(batch, n_micro), _classification_backward, lr)
+
+    return step
+
+
+# -- keypoints --------------------------------------------------------------------------
 
 def _keypoints_losses(out, batch: dict):
     stages_hms, tags = out
@@ -102,6 +172,21 @@ def _split_micro(batch: dict, n_micro: int) -> list:
     return [{key: value[i] for key, value in parts.items()} for i in range(n_micro)]
 
 
+def _accumulated(state: TrainState, micro: list, backward, lr):
+    """The gradients of ``backward`` over the microbatches ``micro``, in
+    order, averaged into one update; the metrics are the microbatches'
+    mean."""
+    state.optimizer.zero_grad(set_to_none=True)
+    metrics = [backward(state, mb) for mb in micro]
+    with torch.no_grad():
+        for group in state.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.grad.div_(len(micro))
+    _update(state, lr)
+    return state, {key: torch.stack([m[key] for m in metrics]).mean(0) for key in metrics[0]}
+
+
 def accumulated_keypoints_train_step(n_micro: int):
     """A keypoints step that averages the gradients of ``n_micro``
     microbatches and makes one update at the end. The BatchNorm running
@@ -112,14 +197,6 @@ def accumulated_keypoints_train_step(n_micro: int):
 
     def step(state: TrainState, batch: dict, lr):
         micro = _split_micro(_to_device(batch, state.device), n_micro)
-        state.optimizer.zero_grad(set_to_none=True)
-        metrics = [_keypoints_backward(state, mb) for mb in micro]
-        with torch.no_grad():
-            for group in state.optimizer.param_groups:
-                for p in group["params"]:
-                    if p.grad is not None:
-                        p.grad.div_(n_micro)
-        _update(state, lr)
-        return state, {key: torch.stack([m[key] for m in metrics]).mean(0) for key in metrics[0]}
+        return _accumulated(state, micro, _keypoints_backward, lr)
 
     return step

@@ -13,6 +13,7 @@ Layout conventions converted:
 * transposed conv (the deconv head): flax ``nn.ConvTranspose`` HWIO ->
   torch (I, O, kH, kW) with the spatial taps flipped, which makes
   ``ConvTranspose2d(k4, s2, p1)`` equal flax's 'SAME' transposed conv
+* dense (the classifier): flax ``[in, out]`` -> torch ``[out, in]``
 * BatchNorm: scale/bias -> weight/bias; mean/var -> running_mean/running_var
 
 ``variables_from_torch`` goes the other way, so that weights the port holds
@@ -71,7 +72,7 @@ def _unit_child(base: str, rest: tuple[str, ...]) -> tuple[str, str]:
 
 def torch_key_for(path: tuple[str, ...]) -> tuple[str, str]:
     """Translate a flax variable path (module names only, no leaf) into the
-    torch module prefix and its kind ("conv" | "deconv" | "bn")."""
+    torch module prefix and its kind ("conv" | "deconv" | "dense" | "bn")."""
     if path[0] == "backbone":
         rest = path[1:]
         if rest[0] in ("stem1", "stem2"):
@@ -116,7 +117,21 @@ def torch_key_for(path: tuple[str, ...]) -> tuple[str, str]:
             return _unit_child(f"{base}.resid_blocks.{int(inner[len('resid'):])}", path[2:])
         if inner == "final_conv":
             return f"{base}.final_layer", "conv"
-    # the classification and SPPE heads join this grammar with their models
+    if path[0] == "head":  # ClassificationHead
+        base = "classification_head"
+        inner = path[1]
+        if inner.startswith("incr"):
+            return _unit_child(f"{base}.chann_incr_blocks.{int(inner[len('incr'):])}", path[2:])
+        if inner.startswith("down"):  # down{i}_conv / down{i}_bn: Sequential(conv, bn, relu)
+            i, sub = inner[len("down"):].split("_")
+            return f"{base}.downsample_blocks.{int(i)}.{0 if sub == 'conv' else 1}", sub
+        if inner == "final_conv":
+            return f"{base}.final_conv.0", "conv"
+        if inner == "final_bn":
+            return f"{base}.final_conv.1", "bn"
+        if inner == "classifier":
+            return f"{base}.classifier", "dense"
+    # the SPPE head joins this grammar with its model
     raise KeyError(f"unmapped flax path: {path}")
 
 
@@ -127,6 +142,8 @@ def _to_torch_leaf(kind: str, leaf: str, value) -> np.ndarray:
             return value.transpose(3, 2, 0, 1)
         if kind == "deconv":
             return value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        if kind == "dense":
+            return value.transpose(1, 0)  # (in, out) -> (out, in)
     return value
 
 
@@ -137,6 +154,8 @@ def _from_torch_leaf(kind: str, leaf: str, value) -> np.ndarray:
             return value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         if kind == "deconv":
             return value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        if kind == "dense":
+            return value.transpose(1, 0)  # (out, in) -> (in, out)
     return value
 
 

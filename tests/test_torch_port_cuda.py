@@ -1124,3 +1124,87 @@ def test_engine_reduced_card_equals_cpu(dev, tmp_path):
     assert out["adam"]["first_rel"] <= 1e-4 and out["sgd"]["first_rel"] <= 1e-4
     assert out["sgd"]["later_rel_of_scale"] <= tol and out["sgd"]["epochs_rel_of_scale"] <= tol
     assert len(out["sgd"]["loss_card"]) == 4
+
+
+# -- ImageNet classification -----------------------------------------------------------------
+
+@pytest.mark.parametrize("batch_size", [8, 4])
+def test_classification_step_reduced_card_equals_cpu(dev, batch_size):
+    """``chip_smoke``'s phase 12 check: one float32 SGD step (nesterov,
+    weight decay, TF32 and cuDNN off) of the reduced ClassificationHRNet
+    (C=8, 1000 classes, batch 8 and batch 4 at 64^2) on the card and on the
+    CPU: the loss within rel 1e-4, each device's gradients within 1e-3 of
+    a float64 evaluation on the CPU with that device's ReLU decisions, BN
+    statistics; where card and CPU decide alike, the card's gradients and
+    the parameters' updates within 1e-3 of the CPU's."""
+    import chip_smoke
+
+    out = chip_smoke.classification_step_card_vs_cpu(dev, batch_size)
+    assert out["loss_rel"] <= 1e-4 and out["grad_rel_max"] <= 1e-3
+    if out["relu"]["card_vs_cpu_differ"] == 0:
+        assert out["grad_rel_vs_cpu_max"] <= 1e-3 and out["update_rel_max"] <= 1e-3
+
+
+def _reduced_classifier(device, seed: int = 2):
+    from human_pose_tpu_torch.models import ClassificationHRNet, init_classification_weights_
+
+    net = ClassificationHRNet(C=8, num_classes=10, num_blocks_per_stage=(1, 1, 1, 1), num_units=1,
+                              device="cpu")
+    return init_classification_weights_(net, torch.Generator().manual_seed(seed)).to(device)
+
+
+def test_classification_bf16_step_keeps_float32_bn_grads(dev):
+    """A bfloat16 classification step (autocast) on the card: every
+    parameter, its gradient and SGD's momentum stay float32, the BatchNorm
+    weights' and biases' gradients among them (the port sums them in
+    float32, ``models/norm.py``), finite; the loss is float32 and within 5%
+    of the float32 step's from the same weights."""
+    from human_pose_tpu_torch.models.norm import BatchNorm2d
+    from human_pose_tpu_torch.train import TrainState, classification_train_step, create_optimizer
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    images = torch.randint(0, 256, (8, 3, 64, 64), dtype=torch.uint8, generator=gen, device=dev)
+    labels = torch.randint(0, 10, (8,), generator=gen, device=dev)
+    losses = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        net = _reduced_classifier(dev)
+        opt = create_optimizer(net.parameters(), "SGD", 0.1, momentum=0.9, nesterov=True)
+        state = TrainState.create(net, opt, dtype=dtype, device=dev)
+        _, metrics = classification_train_step(state, images, labels, 0.1)
+        losses[dtype] = metrics["loss"]
+    assert losses[torch.bfloat16].dtype == torch.float32
+    assert abs(float(losses[torch.bfloat16]) - float(losses[torch.float32])) <= 0.05 * float(losses[torch.float32])
+    bn = [m for m in net.modules() if isinstance(m, BatchNorm2d)]
+    assert bn
+    for m in bn:
+        for p in (m.weight, m.bias):
+            assert p.grad.dtype == torch.float32 and bool(torch.isfinite(p.grad).all())
+    for p in net.parameters():
+        assert p.dtype == torch.float32 and p.grad.dtype == torch.float32
+        assert opt.state[p]["momentum_buffer"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_inference_classification_card_equals_cpu(dev, compact):
+    """``InferenceClassificationModel`` of the reduced net on the card and
+    on the CPU from the same weights, float32 with TF32 off, on two raw
+    images: the model input equal, the probabilities within 1e-5, the
+    batched ``probs`` on the card within 1e-6 of its calls one by one."""
+    from human_pose_tpu_torch.inference import InferenceClassificationModel
+
+    net = _reduced_classifier("cpu").eval()
+    models = {where: InferenceClassificationModel(_reduced_classifier(where).eval(), input_size=64,
+                                                  compact_inputs=compact, device=where)
+              for where in ("cpu", dev)}
+    for m in models.values():
+        m.model.load_state_dict(net.state_dict())
+    rs = np.random.RandomState(4)
+    raws = [rs.randint(0, 256, hw + (3,)).astype(np.uint8) for hw in ((375, 500), (500, 333))]
+    for raw in raws:
+        got, want = models[dev](raw), models["cpu"](raw)
+        assert np.array_equal(got.image, want.image)
+        assert float(np.abs(got.probs - want.probs).max()) <= 1e-5
+    card = models[dev]
+    xs = np.stack([card.transform.inference(r) for r in raws])
+    batched = card.probs(card.to_device(xs)).cpu().numpy()
+    assert np.abs(batched - np.stack([card(r).probs for r in raws])).max() <= 1e-6

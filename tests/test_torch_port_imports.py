@@ -42,7 +42,7 @@ def test_package_imports_with_jax_blocked():
     """Every module of the port (and chip_smoke) imports with JAX, flax and
     the JAX package made unimportable, and without CUDA: the subpackages of
     the inference and eval paths, the CLIs and training (its engine and
-    CLI) too."""
+    CLI) too, and the classification CLIs, config and dataset."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'human_pose_tpu'): sys.modules[m] = None\n"
@@ -53,6 +53,10 @@ def test_package_imports_with_jax_blocked():
         "import human_pose_tpu_torch.configs, human_pose_tpu_torch.bin.eval_keypoints\n"
         "import human_pose_tpu_torch.bin.inference_keypoints, human_pose_tpu_torch.train\n"
         "import human_pose_tpu_torch.bin.train_keypoints, human_pose_tpu_torch.utils.profiling\n"
+        "import human_pose_tpu_torch.bin.train_classification\n"
+        "import human_pose_tpu_torch.bin.eval_classification\n"
+        "import human_pose_tpu_torch.bin.inference_classification\n"
+        "import human_pose_tpu_torch.configs.classification, human_pose_tpu_torch.data.imagenet\n"
         "print('ok')\n"
     )
     res = _run(code, ROOT)
@@ -72,6 +76,37 @@ def test_entry_points_refuse_missing_card():
     with pytest.raises(RuntimeError):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_classification_entry_points_refuse_missing_card(tmp_path, monkeypatch):
+    """``ClassificationHRNet``, ``InferenceClassificationModel`` and the
+    three classification CLIs on the repo's yaml (``accelerator: tpu``)
+    need a card: each raises without one, the train CLI before it makes a
+    run directory."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal path needs a CUDA-less host")
+    from human_pose_tpu_torch.bin import (
+        eval_classification, inference_classification, train_classification,
+    )
+    from human_pose_tpu_torch.inference import InferenceClassificationModel
+    from human_pose_tpu_torch.models import ClassificationHRNet
+
+    tiny = dict(C=8, num_classes=3, num_blocks_per_stage=(1, 1, 1, 1), num_units=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ClassificationHRNet(**tiny)
+    with pytest.raises(RuntimeError, match="cuda"):
+        InferenceClassificationModel(ClassificationHRNet(**tiny, device="cpu"))
+    monkeypatch.chdir(tmp_path)
+    cfg = f"--config={ROOT / 'experiments' / 'classification' / 'hrnet_32.yaml'}"
+    net = ["--net.params.C=8", "--net.params.num_blocks_per_stage=[1,1,1,1]", "--net.params.num_units=1"]
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_classification.main([cfg, *net])
+    assert not (tmp_path / "results").exists()
+    with pytest.raises(RuntimeError, match="cuda"):
+        eval_classification.main([cfg, *net, "--inference.ckpt_path=null"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        inference_classification.main([cfg, *net, "--inference.ckpt_path=null", "--mode=custom",
+                                       f"--dirpath={tmp_path}"])
 
 
 def test_kernel_wrappers_refuse_other_devices():

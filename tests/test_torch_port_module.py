@@ -161,8 +161,8 @@ def test_module_refusals():
     net = HigherHRNet(num_kpts=K, C=8, device="cpu", **SHALLOW)
     with pytest.raises(NotImplementedError, match="module 14"):
         KeypointsModule.create(net, mesh=object())
-    with pytest.raises(NotImplementedError, match="module 12"):
-        ClassificationModule(net, None, {})
+    with pytest.raises(NotImplementedError, match="module 14"):
+        ClassificationModule.create(net, mesh=object())
     with pytest.raises(NotImplementedError, match="module 16"):
         Trainer(None, [], ckpt_backend="orbax")
 
