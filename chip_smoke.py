@@ -11,6 +11,7 @@
     python3 chip_smoke.py --train-data-only    # the training input pipeline alone, see the end
     python3 chip_smoke.py --train-engine-only  # the training engine alone, see the end
     python3 chip_smoke.py --classification-only  # ImageNet classification alone, see the end
+    python3 chip_smoke.py --serve-only         # serving and export alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -122,6 +123,24 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    inference model's ms an image at input 256 in float32 and bfloat16, its
    float32 probabilities card vs CPU, and the last.pt as HigherHRNet-W32's
    pretrained weights (every backbone parameter loaded); no kernel launched
+13. serving and export (``serve_phase``): W32 from the keypoints yaml with
+   seeded weights behind ``BatchedKeypointsPredictor`` in float32 and
+   bfloat16 for a 480x640 raw image (every batch bucket up to 16 warmed
+   up): a predict of 1, 3, 5 and 16 requests with one launch of the dense
+   refine and of the grouping each, its payloads against each request's
+   alone (float32: the same persons, median coordinates within 0.05 and
+   person scores within 5e-3; bfloat16: the same persons), the pad rows
+   changing no payload (bit for bit); ``DynamicBatcher`` under bench_serve's
+   closed-loop load (16 clients x 8 requests at 512, bfloat16, max batch
+   16, max wait 5 ms), plain and compact: p50/p95/p99 ms, requests a
+   second, mean batch size, launches a device batch, busy and idle share;
+   ``make_server`` on a free local port (a JPEG and an ``.npy`` POST,
+   /healthz's "gpu", /stats, /metrics, a 413, a clean close) for keypoints
+   and for ClassificationHRNet-W32, whose batched top-5 equals
+   ``__call__``'s; ``bin.bench_serve`` and ``bin.serve`` (one POST, exit 0
+   on SIGTERM) as processes; ``bin.export`` in the yaml's bfloat16, the
+   ``.pt2`` on the card against the module and the ``.weights.npz`` into a
+   new W32 bit for bit; the two W32s' parameter counts and ``model_cost``
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
@@ -164,8 +183,9 @@ last (no ``ok`` line). ``--eval-only`` does the same for phase 8,
 ``--train-data-only`` for phase 10 (which builds the dense refine and the
 grouping for its validation), ``--train-engine-only`` for phase 11 (the
 same two kernels; without phase 10 in the process it measures phase 10's
-steady step itself) and ``--classification-only`` for phase 12 (which
-builds no kernel).
+steady step itself), ``--classification-only`` for phase 12 (which
+builds no kernel) and ``--serve-only`` for phase 13 (the dense refine and
+the grouping).
 """
 
 from __future__ import annotations
@@ -225,6 +245,7 @@ SOURCES = {
 # input size 512, W32 at the published eval point; (d) compact uint8 inputs
 # bucketed to multiples of 128
 INFER_RAW_HW = (480, 640)
+INFER_WARMUP_S = 1.5  # a configuration's warm-up in each dtype before its timing
 INFER_CONFIGS = {
     "a": {"scales": (1.0,)},
     "b": {"scales": (1.0,), "use_flip": True},
@@ -1281,7 +1302,7 @@ def inference_phase(dev, model, rng, counted, smi: str) -> dict:
             im_t = im if dtype == torch.float32 else InferenceKeypointsModel(
                 model, device=dev, dtype=dtype, **kw)
             fn = lambda: infer_device_part(im_t, xs, hw, valid_hw)  # noqa: E731
-            warm_up(lambda: (fn(), torch.cuda.synchronize()), 3.0)
+            warm_up(lambda: (fn(), torch.cuda.synchronize()), INFER_WARMUP_S)
             name_ = str(dtype).split(".")[-1]
             rec[f"ms_{name_}"] = cuda_ms(fn, iters=3, warmup=0, reps=3)
             if key in ("b", "c"):
@@ -1443,7 +1464,6 @@ def eval_phase(dev, counted, smi: str) -> dict:
     from human_pose_tpu_torch.inference import (
         BatchedKeypointsEvaluator, evaluate_dataset_batched, image_id_from_path,
     )
-    from human_pose_tpu_torch.ops import cuda_decode, cuda_match
     from human_pose_tpu_torch.utils import load_yaml, save_yaml
 
     rng = np.random.default_rng(SEED + 8)
@@ -1531,18 +1551,7 @@ def eval_phase(dev, counted, smi: str) -> dict:
             f"{fwd_rel:.3g} (largest difference {fwd_abs:.3g})")
 
         # the kernels on the batched path's inputs (its last batch at bs 8)
-        seen = record_kernel_inputs(lambda: run(im, 8))
-        hm, tg, prev, cnt = seen["refine_argmax"]
-        cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
-        out["kernels"] = {
-            "refine_shape": f"B{hm.shape[0]} K{K} HW{hm.shape[2]} E{tg.shape[2]} P{prev.shape[1]}",
-            "refine_active_persons": int(cnt.sum()),
-            "refine_ms": cuda_ms(lambda: cuda_decode.refine_argmax_batch(hm, tg, prev, cnt), iters=20),
-            "refine_bound_ms": refine_bound(hm, tg, prev, cnt)[0],
-            "match_shape": f"B{cand.shape[0]} K{K} M{cand.shape[2]} E{cand.shape[3] - 3} P{persons}",
-            "match_ms": cuda_ms(lambda: cuda_match.match_by_tag_batched(
-                cand, det_thr, tag_thr, order, persons), iters=20),
-            "match_bound_ms": match_bound(cand, persons)[0]}
+        out["kernels"] = path_kernel_times(lambda: run(im, 8))
         log("eval kernels (bs8 inputs): " + ", ".join(f"{k_} {v}" for k_, v in out["kernels"].items()))
 
         # where the batched path waits on the host
@@ -1578,8 +1587,8 @@ def eval_phase(dev, counted, smi: str) -> dict:
             for bs in EVAL_BATCH_SIZES:
                 evaluate_dataset_batched(model, ds, bs, progress=False)
                 out["img_per_s"][f"batched_bs{bs}_{dtype}"] = n / host_ms(
-                    lambda: evaluate_dataset_batched(model, ds, bs, progress=False), iters=2) * 1e3
-            wall = host_ms(lambda: run(model, 8), iters=2)
+                    lambda: evaluate_dataset_batched(model, ds, bs, progress=False)) * 1e3
+            wall = host_ms(lambda: run(model, 8))
             busy, groups = profile_breakdown(lambda: run(model, 8))
             out["wall_ms"][dtype], out["busy_ms"][dtype] = wall, busy
             out[f"busy_groups_ms_{dtype}"] = groups
@@ -1613,6 +1622,25 @@ def eval_phase(dev, counted, smi: str) -> dict:
         finally:
             cudnn.benchmark, cudnn.deterministic, cudnn.enabled = saved
     return out
+
+
+def path_kernel_times(fn) -> dict:
+    """The dense refine's and the grouping's shapes, times (CUDA events)
+    and bounds on the inputs of their last launch in ``fn()``."""
+    from human_pose_tpu_torch.ops import cuda_decode, cuda_match
+
+    seen = record_kernel_inputs(fn)
+    hm, tg, prev, cnt = seen["refine_argmax"]
+    cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
+    return {
+        "refine_shape": f"B{hm.shape[0]} K{K} HW{hm.shape[2]} E{tg.shape[2]} P{prev.shape[1]}",
+        "refine_active_persons": int(cnt.sum()),
+        "refine_ms": cuda_ms(lambda: cuda_decode.refine_argmax_batch(hm, tg, prev, cnt), iters=20),
+        "refine_bound_ms": refine_bound(hm, tg, prev, cnt)[0],
+        "match_shape": f"B{cand.shape[0]} K{K} M{cand.shape[2]} E{cand.shape[3] - 3} P{persons}",
+        "match_ms": cuda_ms(lambda: cuda_match.match_by_tag_batched(
+            cand, det_thr, tag_thr, order, persons), iters=20),
+        "match_bound_ms": match_bound(cand, persons)[0]}
 
 
 def eval_only(dev, smi: str) -> int:
@@ -1857,7 +1885,7 @@ def train_step_card_vs_cpu(dev, lr: float = 1e-3, batch: dict | None = None,
 
 def timed_steps(step, n_images: int, what: str, smi: str) -> dict:
     """``step()`` (ending in a device sync, returning its metrics) once for
-    cuDNN's autotuning, then for a 3 s warm-up, then ``TRAIN_STEPS`` times by
+    cuDNN's autotuning, then for a 2 s warm-up, then ``TRAIN_STEPS`` times by
     host wall (median, spread, img/s); the peak memory over the phase's
     start, the device busy time and idle share of one more step (profiler);
     every step's losses finite. Raises on a non-finite loss."""
@@ -1872,7 +1900,7 @@ def timed_steps(step, n_images: int, what: str, smi: str) -> dict:
     base_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     call()
-    warm = 1 + warm_up(call, 3.0)
+    warm = 1 + warm_up(call, 2.0)
     times = [host_ms(call) for _ in range(TRAIN_STEPS)]
     peak = torch.cuda.max_memory_allocated()
     busy, groups = profile_breakdown(call)
@@ -1989,7 +2017,7 @@ TRAIN_DATA_PERSONS = (2, 9)  # 2-8 persons an image
 TRAIN_DATA_CROWD_EVERY = 9
 TRAIN_DATA_WORKERS = (4, 8)
 TRAIN_DATA_EPOCHS = 1  # epochs a loader-rate reading
-TRAIN_DATA_STEPS = 6  # timed steps from the loader, across epoch boundaries
+TRAIN_DATA_STEPS = 4  # timed steps from the loader, across epoch boundaries
 TRAIN_DATA_REPEAT = 5  # the training set repeated in the steady-state epoch
 TRAIN_DATA_STEADY_STEPS = 4  # timed steps within that epoch
 TRAIN_DATA_CARD_STEPS = 4  # timed steps on phase 9's batch made on the card
@@ -3102,6 +3130,538 @@ def classification_only(dev, smi: str) -> int:
     return 0
 
 
+# the serving phase (phase 13): W32 from the keypoints yaml (seeded weights)
+# behind the port's predictor, batcher and HTTP server; bench_serve's point
+# for the closed-loop load
+SERVE_BATCHES = (1, 3, 5, 16)  # predict sizes held to one launch of each decode kernel
+SERVE_MAX_BATCH = 16
+SERVE_LOAD = {"concurrency": 16, "requests": 8, "max_wait_ms": 5.0}
+SERVE_CLS_BATCHES = (1, 5)
+SERVE_CLS_RAW_HW = (375, 500)
+# a batched payload against the same request alone: JAX's serving test's
+# tolerances (tests/test_serving.py: coordinates within 0.05, scores within
+# 5e-3) held on the medians over every joint and person, with the same
+# person count an image. On random W32 weights the heatmaps reach the
+# hundreds and 30 persons an image crowd the grouping, so a few near-tied
+# assignments flip with the convolutions' summation order (the batch size
+# changes cuDNN's algorithm); in bfloat16 (8-bit activations) most do, so
+# bfloat16 holds the person counts and the exact padding check
+# (``padding_exact``), and the trained C=8 fixture's card test
+# (test_serving_batched_decides_as_single_on_card) its decisions
+SERVE_XY_TOL, SERVE_SCORE_TOL = 0.05, 5e-3
+
+
+def payload_stats(got: list, want: list) -> dict:
+    """Keypoints payloads against others of the same images: images whose
+    person counts differ, then over the joints (persons) of the images that
+    agree the median and largest joint x, y difference, the share of joints
+    past ``SERVE_XY_TOL``, the largest joint score difference and the median
+    and largest person score difference."""
+    xy, joint_score, score = [], [], []
+    differ = 0
+    for g, w in zip(got, want):
+        if g["num_people"] != w["num_people"]:
+            differ += 1
+            continue
+        if g["num_people"]:
+            gk = np.asarray([p["keypoints"] for p in g["people"]], np.float64)
+            wk = np.asarray([p["keypoints"] for p in w["people"]], np.float64)
+            xy.append(np.abs(gk[..., :2] - wk[..., :2]).max(-1).ravel())
+            joint_score.append(np.abs(gk[..., 2] - wk[..., 2]).ravel())
+            score.append(np.abs([a["score"] - b["score"] for a, b in zip(g["people"], w["people"])]))
+    xy, joint_score, score = (np.concatenate(a) if a else np.zeros(0) for a in (xy, joint_score, score))
+    return {"images": len(got), "people_differ": differ, "people": sum(g["num_people"] for g in got),
+            "median_xy": float(np.median(xy)) if xy.size else 0.0, "max_xy": float(xy.max(initial=0.0)),
+            "share_xy_past_tol": float((xy > SERVE_XY_TOL).mean()) if xy.size else 0.0,
+            "max_joint_score": float(joint_score.max(initial=0.0)),
+            "median_score": float(np.median(score)) if score.size else 0.0,
+            "max_score": float(score.max(initial=0.0))}
+
+
+def payloads_agree(stats: dict) -> bool:
+    return (stats["people_differ"] == 0 and stats["median_xy"] <= SERVE_XY_TOL
+            and stats["median_score"] <= SERVE_SCORE_TOL)
+
+
+def decisions_gap(a, b) -> dict:
+    """Decode outputs ``(joints, scores, valid)`` of the same images against
+    each other at the level of decisions: person counts an image, the median
+    and largest joint x, y difference and the largest sorted person score
+    difference where the counts agree."""
+    (ja, sa, va), (jb, sb, vb) = [[t.cpu().numpy() for t in x] for x in (a, b)]
+    out = {"persons": (va.sum(1).tolist(), vb.sum(1).tolist()), "median_xy": 0.0, "max_xy": 0.0,
+           "score": 0.0}
+    xy = [np.abs(ja[i][va[i]][..., :2] - jb[i][vb[i]][..., :2]).ravel()
+          for i in range(len(va)) if va[i].sum() == vb[i].sum()]
+    xy = np.concatenate(xy) if xy else np.zeros(0)
+    if xy.size:
+        out["median_xy"], out["max_xy"] = float(np.median(xy)), float(xy.max())
+    out["score"] = max([float(np.abs(np.sort(sa[i][va[i]]) - np.sort(sb[i][vb[i]])).max(initial=0.0))
+                        for i in range(len(va)) if va[i].sum() == vb[i].sum()], default=0.0)
+    return out
+
+
+def http_json(url: str, body: bytes | None = None) -> tuple:
+    """(status, parsed JSON or text) of a GET, or of a POST of ``body``;
+    an HTTP error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, text = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, text = e.code, e.read().decode()
+    try:
+        return status, json.loads(text)
+    except json.JSONDecodeError:
+        return status, text
+
+
+def npy_bytes(arr: np.ndarray) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def jpeg_bytes(rgb: np.ndarray) -> bytes:
+    import cv2
+
+    ok, enc = cv2.imencode(".jpg", cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+    if not ok:
+        raise AssertionError("cv2 could not encode a jpeg")
+    return enc.tobytes()
+
+
+def serve_models(dev) -> dict:
+    """The keypoints yaml's W32 through the port's config with seeded
+    weights, ``{"float32": ..., "bfloat16": ...}`` inference models on the
+    card (the yaml's accelerator "tpu" means bfloat16)."""
+    from human_pose_tpu_torch.configs import KeypointsConfig
+
+    yaml_path = str(Path(__file__).resolve().parent / EVAL_YAML)
+    models = {}
+    for dtype, argv in (("float32", ["--trainer.accelerator=gpu"]), ("bfloat16", [])):
+        cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(
+            yaml_path, ["--inference.ckpt_path=null", *argv]))
+        models[dtype] = cfg.create_inference_model()
+        if str(models[dtype].dtype) != f"torch.{dtype}" or models[dtype].device != dev:
+            raise AssertionError(f"serve: {dtype} model is {models[dtype].dtype} on {models[dtype].device}")
+    return models
+
+
+def serve_predictor_checks(models: dict, counted, raws: list) -> dict:
+    """(1) ``BatchedKeypointsPredictor`` in each dtype: warm-up of every
+    batch bucket up to ``SERVE_MAX_BATCH`` for one 480x640 shape, then each
+    predict of ``SERVE_BATCHES`` requests with one launch of the dense
+    refine and of the grouping, its payloads against each request's payload
+    alone (``payload_stats``; float32 held by ``payloads_agree``, bfloat16
+    on its person counts, see ``SERVE_XY_TOL``); ``padding_exact``; the
+    largest batch's forward against each image's alone (float32 within rel
+    1e-3); host ms of a predict by size."""
+    import torch
+
+    from human_pose_tpu_torch.inference import BatchedKeypointsPredictor
+
+    out = {}
+    for dtype, im in models.items():
+        pred = BatchedKeypointsPredictor(im)
+        t0 = time.perf_counter()
+        pred.warmup(raws[0], SERVE_MAX_BATCH)
+        torch.cuda.synchronize()
+        rec = {"warmup_s": time.perf_counter() - t0, "launches": {}, "gaps": {}, "predict_ms": {}}
+        reqs = [pred.prepare(r) for r in raws]
+        rec["key"] = str(reqs[0].key)
+        singles = [pred.predict([q])[0] for q in reqs]
+        rec["people_alone"] = [s["num_people"] for s in singles]
+        rec["repeat_equal"] = pred.predict(reqs[:1]) == singles[:1]
+        for n in SERVE_BATCHES:
+            payloads, rec["launches"][n] = counted(
+                lambda: pred.predict(reqs[:n]), f"serve predict {dtype} of {n} (padded to "
+                f"{1 << (n - 1).bit_length()})", {"match_by_tag": 1, "refine_argmax": 1})
+            rec["gaps"][n] = payload_stats(payloads, singles[:n])
+            log(f"serve {dtype}: predict of {n} against each request alone: {rec['gaps'][n]}")
+            held = (payloads_agree(rec["gaps"][n]) if dtype == "float32"
+                    else rec["gaps"][n]["people_differ"] == 0)
+            if not held:
+                raise AssertionError(f"serve {dtype}: batched predict of {n} differs from single "
+                                     f"requests: {rec['gaps'][n]}")
+            rec["predict_ms"][n] = host_ms(lambda: pred.predict(reqs[:n]), iters=3)
+        rec["padding_exact"] = padding_exact(pred, reqs)
+        rec["kernels"] = path_kernel_times(lambda: pred.predict(reqs))
+        log(f"serve {dtype} kernels (predict of {len(reqs)}): {rec['kernels']}")
+        # the forward of the largest padded batch against each image alone
+        x = im.to_device(np.concatenate([q.x for q in reqs]))
+        hw = tuple(x.shape[2:])
+        avg, tags = im.forward_scale(x, hw)
+        rel = 0.0
+        for i in range(len(reqs)):
+            a1, t1 = im.forward_scale(x[i:i + 1], hw)
+            for got, want in ((avg[i], a1[0]), (tags[0][i], t1[0][0])):
+                rel = max(rel, float((got - want).abs().max() / want.abs().max().clamp(min=1e-3)))
+        rec["forward_batch_vs_single_rel"] = rel
+        if dtype == "float32" and rel > 1e-3:
+            raise AssertionError(f"serve float32: batch-{len(reqs)} forward vs single rel {rel}")
+        log(f"serve {dtype}: warm-up {rec['warmup_s']:.1f}s, persons alone {rec['people_alone']}, "
+            f"predict host ms by size {rec['predict_ms']}, batch-{len(reqs)} forward vs single rel "
+            f"{rel:.3g}, a single request repeated equal: {rec['repeat_equal']}; padded rows change "
+            f"no payload: {rec['padding_exact']}")
+        out[dtype] = rec
+    return out
+
+
+def padding_exact(pred, reqs: list) -> list:
+    """The zero images that pad a batch to a power of two change no real
+    request's payload: a predict of ``n`` requests (padded) equals, request
+    by request, a predict of the same requests followed by real ones up to
+    the same power of two (one batch shape, so one cuDNN algorithm), with
+    cuDNN's deterministic algorithms. Raises on a miss; returns the (n,
+    batch) pairs held."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    held = []
+    cudnn.deterministic = True
+    try:
+        for n in (3, 5):
+            full = 1 << (n - 1).bit_length()
+            if full > len(reqs):
+                continue
+            padded, real = pred.predict(reqs[:n]), pred.predict(reqs[:full])[:n]
+            if padded != real:
+                raise AssertionError(f"serve: the pad rows of a batch of {n} changed a payload")
+            held.append((n, full))
+    finally:
+        cudnn.deterministic = saved
+    return held
+
+
+def serve_load(net, dev, counted, smi: str) -> dict:
+    """(2) ``DynamicBatcher`` under bench_serve's closed-loop load (its W32
+    weights and images, bfloat16, ``SERVE_LOAD``, max batch
+    ``SERVE_MAX_BATCH``), plain and with compact inputs: p50/p95/p99,
+    requests a second, mean batch size; one launch of each decode kernel a
+    device batch; the device's busy and idle share over a profiled load."""
+    import torch
+
+    from human_pose_tpu_torch.bin.bench_serve import closed_loop
+    from human_pose_tpu_torch.inference import (
+        BatchedKeypointsPredictor, DynamicBatcher, InferenceKeypointsModel,
+    )
+
+    rs = np.random.RandomState(0)  # bench_serve's images
+    images = [(rs.rand(SIZE, SIZE, 3) * 255).astype(np.uint8) for _ in range(4)]
+    n_req = SERVE_LOAD["concurrency"] * SERVE_LOAD["requests"]
+    out = {"card": smi, **SERVE_LOAD, "input_size": SIZE, "max_batch": SERVE_MAX_BATCH}
+    for compact in (False, True):
+        im = InferenceKeypointsModel(net, input_size=SIZE, max_num_people=30, compact_inputs=compact,
+                                     dtype=torch.bfloat16, device=dev)
+        pred = BatchedKeypointsPredictor(im)
+        pred.warmup(images[0], SERVE_MAX_BATCH)
+        runs = []
+
+        def load():
+            batcher = DynamicBatcher(pred, max_batch=SERVE_MAX_BATCH,
+                                     max_wait_ms=SERVE_LOAD["max_wait_ms"])
+            try:
+                lat, wall = closed_loop(batcher, images, SERVE_LOAD["concurrency"],
+                                        SERVE_LOAD["requests"])
+            finally:
+                batcher.close()
+            if len(lat) != n_req or batcher.stats()["errors"]:
+                raise AssertionError(f"serve load: {len(lat)} of {n_req} answered, "
+                                     f"stats {batcher.stats()}")
+            runs.append((lat, wall, batcher.stats()))
+
+        # two loads: the profiler's warm-up (timed) and the profiled one
+        (busy, groups), launches = counted(
+            lambda: profile_breakdown(load), f"serve load ({'compact' if compact else 'plain'}, twice)",
+            lambda _: {"match_by_tag": sum(r[2]["batches"] for r in runs),
+                       "refine_argmax": sum(r[2]["batches"] for r in runs)})
+        (lat, wall, stats), profiled = runs[0], runs[-1]
+        batches = sum(r[2]["batches"] for r in runs)
+        rec = {"p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
+               "p99_ms": float(np.percentile(lat, 99)), "max_ms": float(lat[-1]),
+               "throughput_rps": n_req / wall, "mean_batch_size": stats["mean_batch_size"],
+               "wall_s": wall, "batches": stats["batches"], "launches": launches,
+               "launches_a_batch": {k: v / batches for k, v in launches.items() if v},
+               "profiled_wall_s": profiled[1], "profiled_batches": profiled[2]["batches"],
+               "busy_ms": busy, "busy_groups_ms": groups,
+               "idle_share": None if busy is None else max(0.0, 1 - busy / (profiled[1] * 1e3))}
+        out["compact" if compact else "plain"] = rec
+        log(f"serve load ({'compact uint8' if compact else 'float32'} inputs, bf16 W32, "
+            f"{SERVE_LOAD['concurrency']}x{SERVE_LOAD['requests']}): p50 {rec['p50_ms']:.2f} "
+            f"p95 {rec['p95_ms']:.2f} p99 {rec['p99_ms']:.2f} ms, {rec['throughput_rps']:.2f} req/s, "
+            f"mean batch {rec['mean_batch_size']}, {stats['batches']} batches, launches a batch "
+            f"{rec['launches_a_batch']}; profiled load: busy {busy} ms of {profiled[1] * 1e3:.1f} ms "
+            f"wall (idle share {rec['idle_share']})  [{smi}]")
+    return out
+
+
+def serve_http(models: dict, cls_model, raws: list) -> dict:
+    """(3) ``make_server`` on 127.0.0.1, a free port, in a thread: a JPEG
+    and an ``.npy`` POST to /predict, /healthz (platform "gpu"), /stats,
+    /metrics, a 413 past the body limit; the classification server's POST;
+    ``close`` with no thread left running."""
+    import threading
+
+    from human_pose_tpu_torch.inference import (
+        BatchedClassificationPredictor, BatchedKeypointsPredictor, DynamicBatcher, make_server,
+    )
+
+    out = {}
+    for task, pred in (("keypoints", BatchedKeypointsPredictor(models["bfloat16"])),
+                       ("classification", BatchedClassificationPredictor(cls_model))):
+        batcher = DynamicBatcher(pred, max_batch=4, max_wait_ms=2.0)
+        servers = [make_server(batcher, host="127.0.0.1", port=0),
+                   make_server(batcher, host="127.0.0.1", port=0, max_body_bytes=1024)]
+        threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers]
+        for t in threads:
+            t.start()
+        url = f"http://127.0.0.1:{servers[0].server_address[1]}"
+        rec = {}
+        try:
+            for kind, body in (("jpeg", jpeg_bytes(raws[1])), ("npy", npy_bytes(raws[2]))):
+                t0 = time.perf_counter()
+                status, payload = http_json(f"{url}/predict", body)
+                rec[kind] = {"status": status, "ms": (time.perf_counter() - t0) * 1e3,
+                             "bytes": len(body)}
+                want_key = "num_people" if task == "keypoints" else "top"
+                if status != 200 or want_key not in payload:
+                    raise AssertionError(f"serve http {task} {kind}: {status} {payload}")
+                rec[kind][want_key] = payload[want_key] if task == "keypoints" else payload["pred"]
+            rec["healthz"] = http_json(f"{url}/healthz")
+            rec["stats"] = http_json(f"{url}/stats")
+            status, metrics = http_json(f"{url}/metrics")
+            rec["over_limit"] = http_json(
+                f"http://127.0.0.1:{servers[1].server_address[1]}/predict", b"x" * 2048)[0]
+            if (rec["healthz"] != (200, {"status": "ok", "platform": "gpu"})
+                    or rec["stats"][0] != 200 or rec["stats"][1]["requests"] != 2
+                    or status != 200 or "serving_requests_total 2" not in metrics
+                    or rec["over_limit"] != 413):
+                raise AssertionError(f"serve http {task}: {rec}, metrics {status} {metrics!r}")
+        finally:
+            for s in servers:
+                s.shutdown()
+                s.server_close()
+            batcher.close()
+        for t in [*threads, batcher._worker]:
+            t.join(timeout=5)
+        if any(t.is_alive() for t in [*threads, batcher._worker]):
+            raise AssertionError(f"serve http {task}: a thread still runs after close()")
+        out[task] = rec
+        log(f"serve http {task}: {rec}")
+    return out
+
+
+def serve_classification(cls_model, counted, rng) -> dict:
+    """(4) ``BatchedClassificationPredictor`` on ClassificationHRNet-W32 in
+    float32 at batch sizes ``SERVE_CLS_BATCHES``: each request's top-5 and
+    their probabilities against ``InferenceClassificationModel.__call__``'s
+    (the top label equal, rel 1e-3 above the payload's 6-decimal rounding);
+    no kernel launched."""
+    from human_pose_tpu_torch.inference import BatchedClassificationPredictor
+
+    pred = BatchedClassificationPredictor(cls_model)
+    raws = [rng.integers(0, 256, (*SERVE_CLS_RAW_HW, 3), dtype=np.uint8)
+            for _ in range(max(SERVE_CLS_BATCHES))]
+    calls = [cls_model(r).probs for r in raws]
+    out = {"rel_err": {}}
+    for n in SERVE_CLS_BATCHES:
+        payloads, out[f"launches_{n}"] = counted(
+            lambda: pred.predict([pred.prepare(r) for r in raws[:n]]),
+            f"serve classification predict of {n}", {})
+        worst = 0.0
+        for payload, probs in zip(payloads, calls):
+            order = np.argsort(-probs, kind="stable")
+            if payload["pred"] != cls_model.labels[int(order[0])] or len(payload["top"]) != 5:
+                raise AssertionError(f"serve classification of {n}: {payload} vs top "
+                                     f"{order[:5].tolist()}")
+            for t in payload["top"]:
+                want = float(probs[cls_model.labels.index(t["label"])])
+                gap = abs(t["prob"] - want) - 5e-7
+                worst = max(worst, gap / max(want, 1e-30))
+                if gap > 1e-3 * want:
+                    raise AssertionError(f"serve classification of {n}: {t} vs __call__'s {want}")
+        out["rel_err"][n] = max(worst, 0.0)
+    log(f"serve classification (W32 float32): predict of {SERVE_CLS_BATCHES} == __call__'s top-5 "
+        f"(rel {out['rel_err']}); top-1 of the first {payloads[0]['top'][0]}")
+    return out
+
+
+def serve_clis(raws: list, bench_argv: tuple = (), serve_argv: tuple = ()) -> dict:
+    """(5) ``bin.bench_serve`` as a process at ``SERVE_LOAD`` (its W32 in
+    bfloat16, max batch ``SERVE_MAX_BATCH``) with its JSON line parsed;
+    ``bin.serve`` as a process on the keypoints yaml (seeded weights, a
+    warm-up of the 480x640 shape): one POST answered, exit 0 on SIGTERM.
+    ``bench_argv`` and ``serve_argv`` are appended to each command line."""
+    import signal
+
+    here = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(here)}
+    n_req = SERVE_LOAD["concurrency"] * SERVE_LOAD["requests"]
+    t0 = time.perf_counter()
+    res = subprocess.run([
+        sys.executable, "-m", "human_pose_tpu_torch.bin.bench_serve",
+        f"--concurrency={SERVE_LOAD['concurrency']}", f"--requests={SERVE_LOAD['requests']}",
+        f"--input_size={SIZE}", f"--max_batch={SERVE_MAX_BATCH}",
+        f"--max_wait_ms={SERVE_LOAD['max_wait_ms']}", *bench_argv],
+        cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"bench_serve exited {res.returncode}: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    bench = json.loads(res.stdout.strip().splitlines()[-1])
+    bench["seconds"] = time.perf_counter() - t0
+    if bench["requests"] != n_req or bench["platform"] != "gpu" or not bench["throughput_rps"] > 0:
+        raise AssertionError(f"bench_serve: {bench}")
+    log(f"bin.bench_serve (process): {bench}")
+
+    h, w = INFER_RAW_HW
+    argv = [sys.executable, "-m", "human_pose_tpu_torch.bin.serve", f"--config={here / EVAL_YAML}",
+            "--inference.ckpt_path=null", "--host=127.0.0.1", "--port=0", f"--warmup={h}x{w}",
+            "--max_batch=1", *serve_argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, serve = [], {}
+    try:
+        port = None
+        while port is None:
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError(f"bin.serve ended before listening: {''.join(lines)[-3000:]}")
+            lines.append(line)
+            if "serving keypoints on 127.0.0.1:" in line:
+                port = int(line.split("127.0.0.1:")[1].split()[0])
+        serve["ready_s"] = time.perf_counter() - t0
+        status, payload = http_json(f"http://127.0.0.1:{port}/predict", jpeg_bytes(raws[3]))
+        if status != 200 or "num_people" not in payload:
+            raise AssertionError(f"bin.serve POST: {status} {payload}")
+        serve["num_people"], serve["latency_ms"] = payload["num_people"], payload["latency_ms"]
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=60)
+        serve["exit_code"] = proc.returncode
+        if proc.returncode != 0 or "SIGTERM: shutting down server" not in rest:
+            raise AssertionError(f"bin.serve after SIGTERM: exit {proc.returncode}: {rest[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    log(f"bin.serve (process): listening after {serve['ready_s']:.1f}s with the warm-up, one POST "
+        f"({serve['num_people']} persons, {serve['latency_ms']} ms), exit 0 on SIGTERM")
+    return {"bench_serve": bench, "serve": serve}
+
+
+def serve_export(dev, im, rng, tmp: Path) -> dict:
+    """(6) ``bin.export.main`` on the keypoints yaml in its dtype (bfloat16;
+    the float32 program's round trip is the card test
+    test_export_program_round_trip_on_card): the ``.pt2`` loaded on the
+    card against the inference model ``im``'s forward at the level of
+    decisions after the decode (``decisions_gap``); the ``.weights.npz``
+    through ``load_flax_npz`` into a new W32, strictly, the state dict
+    bit-equal; file sizes and seconds."""
+    import torch
+
+    from human_pose_tpu_torch.bin import export as export_cli
+    from human_pose_tpu_torch.models import HigherHRNet
+    from human_pose_tpu_torch.ops import decode_batch
+    from human_pose_tpu_torch.utils import load_flax_npz
+
+    yaml_path = str(Path(__file__).resolve().parent / EVAL_YAML)
+    x = torch.from_numpy(rng.standard_normal((1, 3, SIZE, SIZE), dtype=np.float32)).to(dev)
+    t0 = time.perf_counter()
+    program, npz = export_cli.main([f"--config={yaml_path}", "--inference.ckpt_path=null",
+                                    f"--out={tmp}"])
+    rec = {"dtype": str(im.dtype), "seconds": time.perf_counter() - t0,
+           "pt2_mb": program.stat().st_size / 2**20, "npz_mb": npz.stat().st_size / 2**20}
+    t0 = time.perf_counter()
+    loaded = torch.export.load(str(program)).module()
+    rec["load_s"] = time.perf_counter() - t0
+    with torch.no_grad():
+        hms_p, tags_p = loaded(x)
+        hms_m, tags_m = im._forward(x)
+    pairs = list(zip([*hms_p, tags_p], [*hms_m, tags_m]))
+    if any(a.dtype != torch.float32 or a.shape != b.shape for a, b in pairs):
+        raise AssertionError(f"export: program outputs {[(a.dtype, a.shape) for a, _ in pairs]}")
+    rec["bit_equal"] = all(torch.equal(a, b) for a, b in pairs)
+    rec["max_rel_err"] = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-3)) for a, b in pairs)
+    rec["decisions"] = decisions_gap(*[
+        decode_batch(list(h), [t], (SIZE, SIZE), max_num_people=M, det_thr=DET_THR, tag_thr=TAG_THR)
+        for h, t in ((hms_p, tags_p), (hms_m, tags_m))])
+    d = rec["decisions"]
+    if d["persons"][0] != d["persons"][1] or d["median_xy"] >= 0.5 or d["score"] >= 0.05:
+        raise AssertionError(f"export: program vs module decisions {d}")
+    net = HigherHRNet(num_kpts=K, C=32, device=dev)
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in load_flax_npz(npz).items()}, strict=True)
+    want = im.model.state_dict()
+    if net.state_dict().keys() != want.keys() or not all(
+            torch.equal(v, want[k]) for k, v in net.state_dict().items()):
+        raise AssertionError("export: the npz's W32 differs from the exported model")
+    log(f"export ({rec['dtype']}): {program.name} {rec['pt2_mb']:.1f} MB, {npz.name} {rec['npz_mb']:.1f} "
+        f"MB in {rec['seconds']:.1f}s (load {rec['load_s']:.1f}s); program vs module: bit-equal "
+        f"{rec['bit_equal']}, rel {rec['max_rel_err']:.3g}, decisions {d}; npz -> new W32 strict, "
+        "state dict bit-equal")
+    return rec
+
+
+def serve_phase(dev, counted, smi: str) -> dict:
+    """Phase 13: serving and export through the port's entry points, W32
+    from ``EVAL_YAML`` with seeded weights (``init_flax_default_``):
+    ``serve_predictor_checks`` (1), ``serve_load`` (2), ``serve_http`` (3),
+    ``serve_classification`` (4) on ClassificationHRNet-W32 from
+    ``CLS_YAML``, ``serve_clis`` (5), ``serve_export`` (6), and model info
+    (7): the two W32s' parameter counts and ``model_cost`` of HigherHRNet-W32
+    at 512^2, batch 1. Raises on any miss; returns the phase's record."""
+    import tempfile
+
+    from human_pose_tpu_torch.configs import ClassificationConfig
+    from human_pose_tpu_torch.utils import count_params, model_cost
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    out = {"card": smi}
+    models = serve_models(dev)
+    cfg = ClassificationConfig.from_dict(ClassificationConfig.from_yaml_to_dict(
+        str(Path(__file__).resolve().parent / CLS_YAML),
+        ["--inference.ckpt_path=null", "--trainer.accelerator=gpu"]))
+    cls_model = cfg.create_inference_model()
+    out["params"] = {"HigherHRNet-W32": count_params(models["float32"].model),
+                     "ClassificationHRNet-W32": count_params(cls_model.model)}
+    if out["params"] != {"HigherHRNet-W32": W32_PARAMS, "ClassificationHRNet-W32": CLS_PARAMS}:
+        raise AssertionError(f"serve: parameter counts {out['params']}")
+    raws = [rng.integers(0, 256, (*INFER_RAW_HW, 3), dtype=np.uint8) for _ in range(max(SERVE_BATCHES))]
+    out["predictor"] = serve_predictor_checks(models, counted, raws)
+    out["launches"] = out["predictor"]["bfloat16"]["launches"][max(SERVE_BATCHES)]
+    out["load"] = serve_load(models["bfloat16"].model, dev, counted, smi)
+    out["http"] = serve_http(models, cls_model, raws)
+    out["classification"] = serve_classification(cls_model, counted, rng)
+    out["clis"] = serve_clis(raws)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["export"] = serve_export(dev, models["bfloat16"], rng, Path(tmp))
+    t0 = time.perf_counter()
+    out["model_cost"] = model_cost(models["float32"].model, (3, SIZE, SIZE), batch=1)
+    out["model_cost"]["seconds"] = time.perf_counter() - t0
+    log(f"model info: {out['params']}; model_cost of HigherHRNet-W32 at {SIZE}^2 bs1: {out['model_cost']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13 (serving and export): {out['seconds']:.1f}s")
+    return out
+
+
+def serve_only(dev, smi: str) -> int:
+    """Phase 13 alone: build the dense refine and the grouping, then the
+    serving and export phase. Prints the phase's record as one JSON object
+    last."""
+    from human_pose_tpu_torch.ops import _build
+
+    log(f"build: per kernel {_build.build_kernels(('refine_argmax', 'match_by_tag'))}")
+    counted = make_counted(kernel_counters())
+    print(json.dumps({"serve": serve_phase(dev, counted, smi)}), flush=True)
+    return 0
+
+
 def refine_only(dev, rng, smi: str) -> int:
     """The short loop for the dense refine: build, SASS counts, parity, then
     its time on the main path's and the dense scene's inputs and over a
@@ -3389,6 +3949,8 @@ def main() -> int:
                              "last.pt, the engine's timing, the reduced run card vs CPU)")
     parser.add_argument("--classification-only", action="store_true",
                         help="run the ImageNet classification phase alone (it builds no kernel)")
+    parser.add_argument("--serve-only", action="store_true",
+                        help="build the decode's kernels and run the serving and export phase alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3442,6 +4004,8 @@ def main() -> int:
         return train_engine_only(dev, smi)
     if args.classification_only:
         return classification_only(dev, smi)
+    if args.serve_only:
+        return serve_only(dev, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -3669,6 +4233,9 @@ def main() -> int:
     # 12. ImageNet classification
     cls_rec = classification_phase(dev, counted, smi)
 
+    # 13. serving and export
+    serve_rec = serve_phase(dev, counted, smi)
+
     # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
     dense_in = record_kernel_inputs(decode_dense)
@@ -3680,7 +4247,8 @@ def main() -> int:
              **{f"eval_bs{bs}": c for bs, c in eval_rec["launches"].items()},
              "train_data_val": train_data_rec["launches"],
              "train_engine": train_engine_rec["launches"],
-             "classification": cls_rec["launches"]}
+             "classification": cls_rec["launches"],
+             "serve": serve_rec["launches"]}
 
     def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
         return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
@@ -3796,6 +4364,7 @@ def main() -> int:
     print(json.dumps({"train_data": train_data_rec}), flush=True)
     print(json.dumps({"train_engine": train_engine_rec}), flush=True)
     print(json.dumps({"classification": cls_rec}), flush=True)
+    print(json.dumps({"serve": serve_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -10,7 +10,7 @@ so each counterpart is easy to find:
   tag grouping and the refine argmax run as hand-written CUDA kernels
   (``csrc/``) on CUDA tensors and as their plain PyTorch versions on CPU
   tensors
-* ``utils.weights`` — flax variable trees / npz files -> torch state dicts
+* ``utils.weights`` — flax variable trees / npz files <-> torch state dicts
 * ``inference`` — the keypoints inference model (64-aligned resize, flip
   and multi-scale TTA, the decode on the device), the classification one
   (center crop, softmax on the device) and their result objects;
@@ -26,7 +26,12 @@ so each counterpart is easy to find:
   a host C++ heatmap splat, augmentations, the COCO dataset's training side,
   ``collate``, the ImageNet ImageFolder dataset and its crops, the threaded
   loader)
-* ``bin`` — the keypoints and classification train, eval and inference CLIs
+* ``inference.serving`` — the dynamic-batching predictors, batcher and HTTP
+  server; ``utils.export`` (``torch.export`` program, flat-weights npz),
+  ``utils.model_info`` and ``utils.argv`` (the serve, bench_serve and
+  export CLIs' flags)
+* ``bin`` — the keypoints and classification train, eval and inference
+  CLIs, serve, bench_serve and export
 
 Entry points that create tensors or models take ``device=`` and default to
 ``"cuda"``; they raise when no card is present instead of running on the CPU.

@@ -1,23 +1,35 @@
 """Inference: the keypoints model (flip and multi-scale TTA, 64-aligned
 resize, the AE decode on the device), the classification model (center
-crop, softmax on the device), their result objects and plots, and the
-batched COCO evaluator. Serving and the SPPE model come later."""
+crop, softmax on the device), their result objects and plots, the batched
+COCO evaluator and the dynamic-batching server (``serving``). The SPPE model
+comes later."""
 
 from .batched_eval import BatchedKeypointsEvaluator, evaluate_dataset_batched, image_id_from_path
 from .models import InferenceClassificationModel, InferenceKeypointsModel, load_inference_weights
 from .results import ClassificationResult, InferenceKeypointsResult, KeypointsResult
+from .serving import (
+    BatchedClassificationPredictor, BatchedKeypointsPredictor, DynamicBatcher, PreparedClassRequest,
+    PreparedRequest, decode_request_body, make_server,
+)
 from .visualization import plot_connections, plot_grouped_ae_tags, plot_heatmaps, plot_top_probs
 
 __all__ = [
+    "BatchedClassificationPredictor",
     "BatchedKeypointsEvaluator",
+    "BatchedKeypointsPredictor",
     "ClassificationResult",
+    "DynamicBatcher",
     "InferenceClassificationModel",
     "InferenceKeypointsModel",
     "InferenceKeypointsResult",
     "KeypointsResult",
+    "PreparedClassRequest",
+    "PreparedRequest",
+    "decode_request_body",
     "evaluate_dataset_batched",
     "image_id_from_path",
     "load_inference_weights",
+    "make_server",
     "plot_connections",
     "plot_grouped_ae_tags",
     "plot_heatmaps",

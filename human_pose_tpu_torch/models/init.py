@@ -28,20 +28,21 @@ def _flax_dense_(m: nn.Linear, generator: torch.Generator) -> None:
 @torch.no_grad()
 def init_flax_default_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill conv and transposed-conv kernels after flax's default initializer
-    (LeCun normal: std = 1/sqrt(fan_in), fan_in = in_channels * kH * kW,
-    divided by the truncated std; the normal draws are clamped at 2 std, not
-    redrawn, which leaves their std 9% above flax's: ROADMAP §3), Linear
-    kernels as flax's ``Dense`` default (``_flax_dense_``: truncated), zero
-    biases and leave BN at (1, 0) with unit running variance — the weights
-    ``model.init`` gives the JAX package's benchmark. Draws on the CPU from
-    ``generator`` so a seed gives the same weights on every device."""
+    (LeCun normal: a unit normal truncated to [-2, 2], drawn by its inverse
+    CDF as ``jax.random.truncated_normal``, scaled by 1/sqrt(fan_in) /
+    ``TRUNCATED_NORMAL_STD`` so its std is 1/sqrt(fan_in); fan_in =
+    in_channels * kH * kW), Linear kernels as flax's ``Dense`` default
+    (``_flax_dense_``), zero biases and leave BN at (1, 0) with unit running
+    variance — the weights ``model.init`` gives the JAX package's benchmark.
+    Draws on the CPU from ``generator`` so a seed gives the same weights on
+    every device."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             kh, kw = w.shape[-2:]
             cin = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
             std = 1.0 / math.sqrt(cin * kh * kw) / TRUNCATED_NORMAL_STD
-            vals = torch.empty(w.shape).normal_(generator=generator).clamp_(-2.0, 2.0)
+            vals = nn.init.trunc_normal_(torch.empty(w.shape), generator=generator)
             w.copy_(vals * std)
             if m.bias is not None:
                 m.bias.zero_()

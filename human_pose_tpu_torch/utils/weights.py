@@ -17,7 +17,9 @@ Layout conventions converted:
 * BatchNorm: scale/bias -> weight/bias; mean/var -> running_mean/running_var
 
 ``variables_from_torch`` goes the other way, so that weights the port holds
-load back into the JAX package.
+load back into the JAX package; ``variables_from_state_dict`` does so
+without a JAX template (``flax_path_for``, the inverse of
+``torch_key_for``), for the flat-weights npz of ``utils/export.py``.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ from typing import Any, Callable, Mapping
 import numpy as np
 
 __all__ = [
+    "flax_path_for",
     "strip_torch_prefixes",
     "torch_key_for",
+    "variables_from_state_dict",
     "variables_from_torch",
     "variables_to_torch",
     "load_flax_npz",
@@ -133,6 +137,110 @@ def torch_key_for(path: tuple[str, ...]) -> tuple[str, str]:
             return f"{base}.classifier", "dense"
     # the SPPE head joins this grammar with its model
     raise KeyError(f"unmapped flax path: {path}")
+
+
+def _unit_path(parts: list[str]) -> tuple[str, ...]:
+    """Inverse of ``_unit_child``: a residual unit's torch child
+    (``conv{n}``/``bn{n}``/``downsample.{0|1}``) as its flax path."""
+    if parts[0] == "downsample":
+        return ("downsample", "conv" if parts[1] == "0" else "bn")
+    sub, n = parts[0][:-1], parts[0][-1]
+    return (f"cb{n}", "conv" if sub == "conv" else "bn")
+
+
+def _sub(index: str) -> str:
+    """A ``Sequential(conv, bn[, ...])`` index as the flax module's name."""
+    return "conv" if index == "0" else "bn"
+
+
+def _flax_path(parts: list[str]) -> tuple[str, ...]:
+    if parts[0] == "backbone":
+        rest = parts[1:]
+        if len(rest) == 1:  # stem: conv1/bn1, conv2/bn2
+            kind, n = rest[0][:-1], rest[0][-1]
+            return ("backbone", f"stem{n}", "conv" if kind == "conv" else "bn")
+        s = int(rest[1])
+        stage = f"stage{s + 1}"
+        if rest[2] == "transition_layer":  # .transition_blocks.{idx}.{0|1}
+            idx = int(rest[4])
+            name = "new_branch" if idx == s + 1 else f"branch{idx}"
+            return ("backbone", stage, "transition", name, _sub(rest[5]))
+        k = int(rest[3])  # blocks.{k}: even k a residual block, odd k a fusion
+        if rest[4] == "scales_blocks":
+            i, j = rest[5], rest[6]
+            return ("backbone", stage, f"block{k // 2}", f"scale{i}_unit{j}",
+                    *_unit_path(rest[7:]))
+        i, j = rest[5], rest[6]
+        if len(rest) == 8:  # Sequential(conv, bn, up)
+            return ("backbone", stage, f"fusion{k // 2}", f"out{i}_in{j}_up", _sub(rest[7]))
+        return ("backbone", stage, f"fusion{k // 2}", f"out{i}_in{j}_down{rest[7]}",
+                _sub(rest[8]))
+    if parts == ["init_heatmaps_head"]:
+        return ("init_heatmaps_head",)
+    if parts[0] == "deconv_layers":
+        base = f"deconv{parts[1]}"
+        if parts[2] == "deconv":
+            return (base, "deconv" if parts[3] == "0" else "deconv_bn")
+        if parts[2] == "resid_blocks":
+            return (base, f"resid{parts[3]}", *_unit_path(parts[4:]))
+        if parts[2] == "final_layer":
+            return (base, "final_conv")
+    if parts[0] == "classification_head":
+        if parts[1] == "chann_incr_blocks":
+            return ("head", f"incr{parts[2]}", *_unit_path(parts[3:]))
+        if parts[1] == "downsample_blocks":
+            return ("head", f"down{parts[2]}_{_sub(parts[3])}")
+        if parts[1] == "final_conv":
+            return ("head", "final_conv" if parts[2] == "0" else "final_bn")
+        if parts[1] == "classifier":
+            return ("head", "classifier")
+    raise KeyError(".".join(parts))
+
+
+def flax_path_for(prefix: str) -> tuple[tuple[str, ...], str]:
+    """The inverse of ``torch_key_for``: a torch module prefix (no leaf) of
+    HigherHRNet or ClassificationHRNet as its flax variable path and kind.
+    Checked against ``torch_key_for``, so a prefix it cannot map back
+    raises ``KeyError``."""
+    try:
+        path = _flax_path(prefix.split("."))
+        back, kind = torch_key_for(path)
+    except (KeyError, IndexError, ValueError) as e:
+        raise KeyError(f"unmapped torch prefix: {prefix}") from e
+    if back != prefix:
+        raise KeyError(f"unmapped torch prefix: {prefix} (maps back to {back})")
+    return path, kind
+
+
+_TORCH_LEAF = {"weight": ("params", None), "bias": ("params", "bias"),
+               "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def variables_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """A reference-layout torch state dict (tensors or arrays) as a flax
+    ``{"params", "batch_stats"}`` tree of numpy arrays in flax's names and
+    shapes, without a template: the inverse of ``variables_to_torch``
+    (prefixes stripped, ``num_batches_tracked`` dropped)."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, value in strip_torch_prefixes(state_dict).items():
+        prefix, _, leaf = key.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf not in _TORCH_LEAF:
+            raise KeyError(f"unmapped torch key: {key}")
+        path, kind = flax_path_for(prefix)
+        col, name = _TORCH_LEAF[leaf]
+        if name is None:
+            name = "scale" if kind == "bn" else "kernel"
+        if hasattr(value, "detach"):
+            value = value.detach().cpu().numpy()
+        node = out[col]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(_from_torch_leaf(kind, name, value))
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out
 
 
 def _to_torch_leaf(kind: str, leaf: str, value) -> np.ndarray:
@@ -252,8 +360,9 @@ def _refuse_jax_formats(path: Path) -> None:
             raise ValueError(
                 f"{path} is a native JAX trainer checkpoint (a pickle around flax msgpack); the "
                 "port reads neither msgpack nor flax: export its weights as a flat npz with the JAX "
-                "package's utils/export.py::export_weights_npz (the port's reader of such "
-                "checkpoints is ROADMAP module 16)")
+                "package's utils/export.py::export_weights_npz, the layout the port's "
+                "human_pose_tpu_torch/utils/export.py::export_weights_npz writes too (the port's "
+                "reader of such checkpoints is ROADMAP module 16)")
         raise ValueError(f"unrecognized checkpoint format at {path}")
 
 

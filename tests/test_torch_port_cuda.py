@@ -1208,3 +1208,130 @@ def test_inference_classification_card_equals_cpu(dev, compact):
     xs = np.stack([card.transform.inference(r) for r in raws])
     batched = card.probs(card.to_device(xs)).cpu().numpy()
     assert np.abs(batched - np.stack([card(r).probs for r in raws])).max() <= 1e-6
+
+
+# -- serving and export (inference/serving.py, utils/export.py) -----------------
+
+def _fixture_net(device):
+    from pathlib import Path
+
+    from human_pose_tpu_torch.inference import load_inference_weights
+    from human_pose_tpu_torch.models import HigherHRNet
+
+    net = HigherHRNet(num_kpts=17, C=8, device=device).eval()
+    net.load_state_dict(load_inference_weights(Path(__file__).parent / "data" / "ap_fixture_weights.npz"))
+    return net
+
+
+def _fixture_predictor(device, dtype=torch.float32):
+    """``BatchedKeypointsPredictor`` on the trained C=8 fixture at the AP
+    check's eval point."""
+    from human_pose_tpu_torch.inference import BatchedKeypointsPredictor, InferenceKeypointsModel
+
+    return BatchedKeypointsPredictor(InferenceKeypointsModel(
+        _fixture_net(device), det_thr=0.25, tag_thr=0.4, input_size=64, max_num_people=10,
+        dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 16])
+def test_serving_predict_launches_each_decode_kernel_once(dev, n):
+    """A predict of ``n`` same-bucket requests (padded to a power of two) is
+    one device batch: one launch of the dense refine and of the grouping."""
+    pred = _fixture_predictor(dev)
+    reqs = [pred.prepare(_paint_fixture_image(i % 4)) for i in range(n)]
+    before = (refine_argmax_batch.launches, match_by_tag_batched.launches)
+    out = pred.predict(reqs)
+    torch.cuda.synchronize()
+    assert len(out) == n and all(p["num_people"] >= 1 for p in out)
+    assert (refine_argmax_batch.launches - before[0], match_by_tag_batched.launches - before[1]) == (1, 1)
+
+
+def _people(payload) -> tuple:
+    keypoints = np.asarray([p["keypoints"] for p in payload["people"]], np.float64).reshape(-1, 17, 3)
+    return keypoints, np.asarray([p["score"] for p in payload["people"]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serving_batched_decides_as_single_on_card(dev, dtype):
+    """Five requests in one padded batch against each alone, on the card:
+    float32 at JAX's serving rule (the same persons, coordinates within
+    0.05, scores within 5e-3: the batch size changes only cuDNN's summation
+    order); bfloat16, whose activations round to 8 bits, at the level of
+    decisions (the same persons, median joint difference < 0.5 px, sorted
+    person scores within 0.05)."""
+    pred = _fixture_predictor(dev, dtype)
+    reqs = [pred.prepare(_paint_fixture_image(seed)) for seed in range(5)]
+    for batched, req in zip(pred.predict(reqs), reqs):
+        single = pred.predict([req])[0]
+        assert batched["num_people"] == single["num_people"] >= 1
+        (bk, bs), (sk, ss) = _people(batched), _people(single)
+        if dtype == torch.float32:
+            assert np.abs(bk[..., :2] - sk[..., :2]).max() <= 0.05
+            assert np.abs(bk[..., 2] - sk[..., 2]).max() <= 5e-3 and np.abs(bs - ss).max() <= 5e-3
+        else:
+            assert np.median(np.abs(bk[..., :2] - sk[..., :2])) < 0.5
+            assert np.abs(np.sort(bs) - np.sort(ss)).max() < 0.05
+
+
+def test_serving_worker_thread_bf16_autocast_and_no_grad(dev):
+    """A request through ``DynamicBatcher`` runs its device calls on the
+    worker thread: the convolutions in bfloat16 (the model's autocast,
+    entered per call on that thread), no output requiring grad; the server
+    reports the platform "gpu"."""
+    from human_pose_tpu_torch.inference import DynamicBatcher
+    from human_pose_tpu_torch.inference.serving import served_platform
+
+    pred = _fixture_predictor(dev, torch.bfloat16)
+    seen, decoded = [], []
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.append((o.dtype, o.requires_grad)))
+             for m in pred.m.model.modules() if isinstance(m, torch.nn.Conv2d)]
+    orig = pred.m.decode_masked
+    pred.m.decode_masked = lambda *a, **kw: decoded.extend(orig(*a, **kw)) or decoded[-4:]
+    batcher = DynamicBatcher(pred, max_batch=4, max_wait_ms=1.0)
+    try:
+        assert torch.is_grad_enabled()
+        result = batcher.submit(_paint_fixture_image(0))
+        assert served_platform(batcher) == "gpu"
+    finally:
+        batcher.close()
+        for h in hooks:
+            h.remove()
+    assert result["num_people"] >= 1 and result["batch_size"] == 1
+    assert seen and all(d == torch.bfloat16 and not g for d, g in seen)
+    assert decoded and not any(t.requires_grad for t in decoded)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_export_program_round_trip_on_card(dev, dtype, tmp_path):
+    """The fixture net exported on the card and loaded back: float32 within
+    rel 1e-3 of the module's forward, bfloat16 (traced under autocast) at
+    the level of decisions after the decode; the flat-weights npz into a
+    new net on the card, strictly, bit for bit."""
+    from human_pose_tpu_torch.inference import InferenceKeypointsModel
+    from human_pose_tpu_torch.models import HigherHRNet
+    from human_pose_tpu_torch.utils import export_program, export_weights_npz, load_flax_npz
+
+    net = _fixture_net(dev)
+    export_program(net, (3, 64, 64), tmp_path / "p.pt2", dtype=dtype)
+    loaded = torch.export.load(str(tmp_path / "p.pt2")).module()
+    im = InferenceKeypointsModel(net, input_size=64, dtype=dtype, device=dev)
+    x = im.to_device(im.prepare_input(_paint_fixture_image(2))[0])
+    with torch.no_grad():
+        got_h, got_t = loaded(x)
+        want_h, want_t = im._forward(x)
+    for got, want in zip([*got_h, got_t], [*want_h, want_t]):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        if dtype == torch.float32:
+            assert float((got - want).abs().max() / want.abs().max()) <= 1e-3
+    if dtype == torch.bfloat16:
+        kw = dict(max_num_people=10, det_thr=0.25, tag_thr=0.4)
+        (gj, gs, gv), (wj, ws, wv) = [decode_batch(list(h), [t], (64, 64), **kw)
+                                      for h, t in ((got_h, got_t), (want_h, want_t))]
+        assert int(gv.sum()) == int(wv.sum()) >= 1
+        assert float((gj[gv][..., :2] - wj[wv][..., :2]).abs().median()) < 0.5
+        assert float((gs[gv].sort().values - ws[wv].sort().values).abs().max()) < 0.05
+    export_weights_npz(net, tmp_path / "w.npz")
+    again = HigherHRNet(num_kpts=17, C=8, device=dev)
+    again.load_state_dict({k: torch.from_numpy(v) for k, v in load_flax_npz(tmp_path / "w.npz").items()},
+                          strict=True)
+    assert all(torch.equal(a, b) for a, b in zip(again.state_dict().values(), net.state_dict().values()))

@@ -42,7 +42,8 @@ def test_package_imports_with_jax_blocked():
     """Every module of the port (and chip_smoke) imports with JAX, flax and
     the JAX package made unimportable, and without CUDA: the subpackages of
     the inference and eval paths, the CLIs and training (its engine and
-    CLI) too, and the classification CLIs, config and dataset."""
+    CLI) too, the classification CLIs, config and dataset, and serving and
+    export (their CLIs, the flag parser, model info)."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'human_pose_tpu'): sys.modules[m] = None\n"
@@ -57,6 +58,10 @@ def test_package_imports_with_jax_blocked():
         "import human_pose_tpu_torch.bin.eval_classification\n"
         "import human_pose_tpu_torch.bin.inference_classification\n"
         "import human_pose_tpu_torch.configs.classification, human_pose_tpu_torch.data.imagenet\n"
+        "import human_pose_tpu_torch.inference.serving, human_pose_tpu_torch.bin.serve\n"
+        "import human_pose_tpu_torch.bin.bench_serve, human_pose_tpu_torch.bin.export\n"
+        "import human_pose_tpu_torch.utils.export, human_pose_tpu_torch.utils.model_info\n"
+        "import human_pose_tpu_torch.utils.argv\n"
         "print('ok')\n"
     )
     res = _run(code, ROOT)
