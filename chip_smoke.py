@@ -12,6 +12,7 @@
     python3 chip_smoke.py --train-engine-only  # the training engine alone, see the end
     python3 chip_smoke.py --classification-only  # ImageNet classification alone, see the end
     python3 chip_smoke.py --serve-only         # serving and export alone, see the end
+    python3 chip_smoke.py --zoo-only           # the model zoo alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -130,9 +131,12 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    refine and of the grouping each, its payloads against each request's
    alone (float32: the same persons, median coordinates within 0.05 and
    person scores within 5e-3; bfloat16: the same persons), the pad rows
-   changing no payload (bit for bit); ``DynamicBatcher`` under bench_serve's
-   closed-loop load (16 clients x 8 requests at 512, bfloat16, max batch
-   16, max wait 5 ms), plain and compact: p50/p95/p99 ms, requests a
+   changing no payload (bit for bit), one float32 predict and its forward
+   repeated three times under cuDNN's deterministic algorithms (bit for
+   bit), the yaml's cuDNN settings and PyTorch's defaults (recorded);
+   ``DynamicBatcher`` under bench_serve's closed-loop load (16 clients x 8
+   requests at 512, bfloat16, max batch 16, max wait 5 ms), plain and
+   compact: p50/p95/p99 ms, requests a
    second, mean batch size, launches a device batch, busy and idle share;
    ``make_server`` on a free local port (a JPEG and an ``.npy`` POST,
    /healthz's "gpu", /stats, /metrics, a 413, a clean close) for keypoints
@@ -141,6 +145,18 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    on SIGTERM) as processes; ``bin.export`` in the yaml's bfloat16, the
    ``.pt2`` on the card against the module and the ``.weights.npz`` into a
    new W32 bit for bit; the two W32s' parameter counts and ``model_cost``
+14. the model zoo (``zoo_phase``): the AE hourglass, the stacked hourglass
+   (16 joints), SimpleBaseline-R50 and HRNetSPPE-W32 at full width, seeded:
+   parameter counts, each float32 forward card vs CPU (rel 1e-3);
+   ``sppe_parse`` card == CPU on the SPPE nets' outputs and on ties;
+   ``InferenceKeypointsModel`` on the AE hourglass at 512 with flip for a
+   480x640 raw image with one launch of the dense refine and of the
+   grouping, each equal to its plain version on that call's inputs, their
+   times and bounds, ms an image float32 and bfloat16; ``InferenceSPPEModel``
+   from the config for SimpleBaseline-R50 and HRNetSPPE-W32: no kernel
+   launched, joints card == CPU parse, ms an image float32 and bfloat16; a
+   torchvision-layout resnet50 state dict into SimpleBaseline's backbone on
+   the card, strictly
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
@@ -184,8 +200,8 @@ last (no ``ok`` line). ``--eval-only`` does the same for phase 8,
 grouping for its validation), ``--train-engine-only`` for phase 11 (the
 same two kernels; without phase 10 in the process it measures phase 10's
 steady step itself), ``--classification-only`` for phase 12 (which
-builds no kernel) and ``--serve-only`` for phase 13 (the dense refine and
-the grouping).
+builds no kernel), ``--serve-only`` for phase 13 and ``--zoo-only`` for
+phase 14 (each the dense refine and the grouping).
 """
 
 from __future__ import annotations
@@ -216,6 +232,9 @@ PEAK_TF32_S = 495e12
 W32_PARAMS = 28_645_331
 # HRNet-W32 branch shapes of a 512x512 input: (channels, height = width)
 W32_BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))
+
+# images of the main path's batch on which row 2's plain_ms is timed
+MATCH_PLAIN_IMAGES = 4
 
 # file:line of the TPU kernel each CUDA kernel replaces, and its function
 REPLACES = {
@@ -3291,6 +3310,17 @@ def serve_predictor_checks(models: dict, counted, raws: list) -> dict:
                                      f"requests: {rec['gaps'][n]}")
             rec["predict_ms"][n] = host_ms(lambda: pred.predict(reqs[:n]), iters=3)
         rec["padding_exact"] = padding_exact(pred, reqs)
+        if dtype == "float32":
+            rec["repeat"] = repeat_readings(pred, reqs[0], yaml_cudnn())
+            log(f"serve float32: one predict repeated {SERVE_REPEATS}x by cuDNN setting: "
+                + "; ".join(f"{k}: payload equal {r['payload_bit_equal']}, forward equal "
+                            f"{r['forward_bit_equal']} (max diff {r['forward_max_abs_diff']:.3g}), "
+                            f"largest joint gap {max(g['max_xy'] for g in r['payload_gaps']):.4g} px"
+                            for k, r in rec["repeat"].items()))
+            det = rec["repeat"]["deterministic"]
+            if not (det["forward_bit_equal"] and det["payload_bit_equal"]):
+                raise AssertionError(f"serve float32: one predict repeated with cuDNN deterministic "
+                                     f"is not bit-equal: {det}")
         rec["kernels"] = path_kernel_times(lambda: pred.predict(reqs))
         log(f"serve {dtype} kernels (predict of {len(reqs)}): {rec['kernels']}")
         # the forward of the largest padded batch against each image alone
@@ -3311,6 +3341,53 @@ def serve_predictor_checks(models: dict, counted, raws: list) -> dict:
             f"no payload: {rec['padding_exact']}")
         out[dtype] = rec
     return out
+
+
+SERVE_REPEATS = 3  # repeats of one float32 predict under each cuDNN setting
+
+
+def repeat_readings(pred, req, yaml_cudnn: tuple, n: int = SERVE_REPEATS) -> dict:
+    """One predict of ``req`` and the forward of its input repeated ``n``
+    times under each cuDNN setting (deterministic, benchmark): cuDNN's
+    deterministic algorithms with benchmark off, the yaml's ``cudnn``
+    section (``yaml_cudnn``), and PyTorch's defaults (neither); for each,
+    whether every repeat equals the first bit for bit (payload and forward
+    maps), the largest forward difference and ``payload_stats`` of the
+    repeats against the first. cuDNN's switches are restored."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    im = pred.m
+    x = im.to_device(req.x)
+    hw = tuple(x.shape[2:])
+    out = {}
+    try:
+        for what, (det, bench) in (("deterministic", (True, False)), ("yaml", yaml_cudnn),
+                                   ("torch_default", (False, False))):
+            cudnn.deterministic, cudnn.benchmark = det, bench
+            payloads = [pred.predict([req]) for _ in range(n)]
+            maps = [torch.cat([a.flatten() for a in (avg, *tags)])
+                    for avg, tags in (im.forward_scale(x, hw) for _ in range(n))]
+            out[what] = {
+                "deterministic": det, "benchmark": bench,
+                "payload_bit_equal": all(p == payloads[0] for p in payloads[1:]),
+                "forward_bit_equal": all(torch.equal(m, maps[0]) for m in maps[1:]),
+                "forward_max_abs_diff": max(float((m - maps[0]).abs().max()) for m in maps[1:]),
+                "payload_gaps": [payload_stats(p, payloads[0]) for p in payloads[1:]]}
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    return out
+
+
+def yaml_cudnn() -> tuple:
+    """(deterministic, benchmark) as ``apply_cudnn`` sets them from the
+    keypoints yaml."""
+    from human_pose_tpu_torch.configs import KeypointsConfig
+
+    cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(
+        str(Path(__file__).resolve().parent / EVAL_YAML), []))
+    return cfg.cudnn.deterministic or cfg.setup.deterministic, cfg.cudnn.benchmark
 
 
 def padding_exact(pred, reqs: list) -> list:
@@ -3662,6 +3739,284 @@ def serve_only(dev, smi: str) -> int:
     return 0
 
 
+# phase 14, the model zoo: each network at full width (the JAX package's
+# defaults; depth not cut), seeded with init_flax_default_
+ZOO_NETS = {
+    "AEHourglassNet": ("AEHourglassNet", {"num_kpts": K, "num_stages": 2}, 6_795_396),
+    "HourglassNet": ("HourglassNet", {"num_kpts": 16, "num_stages": 2}, 6_785_632),
+    "SimpleBaseline-R50": ("SimpleBaseline", {"num_kpts": K, "backbone": "resnet50"}, 33_999_697),
+    "HRNetSPPE-W32": ("HRNetSPPE", {"num_keypoints": K, "C": 32}, 28_536_113),
+}
+ZOO_FORWARD_HW = 128  # the card-vs-CPU forward's input: full width, an image the CPU runs fast
+ZOO_SPPE_ARCHS = {"SimpleBaseline-R50": "SimpleBaseline", "HRNetSPPE-W32": "HRNet"}
+ZOO_CALLS = 5  # timed __call__s an SPPE model and dtype, after the warm-up
+
+
+def torchvision_resnet_state_dict(variant: str, rng, num_classes: int = 1000) -> dict:
+    """A seeded state dict in torchvision's ResNet layout (``conv1``,
+    ``bn1``, ``layer{L}.{i}.conv{j}`` / ``.bn{j}``, ``.downsample.{0,1}``,
+    ``fc``, with ``num_batches_tracked``), named and shaped from
+    torchvision's scheme, not from the port's modules."""
+    import torch
+
+    from human_pose_tpu_torch.models import RESNET_SPECS
+
+    block, layers = RESNET_SPECS[variant]
+    sd = {}
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    def conv(key, o, i, k):
+        sd[f"{key}.weight"] = randn(o, i, k, k) / float(np.sqrt(i * k * k))
+
+    def bn(key, c):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = 1 + 0.1 * randn(c), 0.1 * randn(c)
+        sd[f"{key}.running_mean"], sd[f"{key}.running_var"] = 0.1 * randn(c), 0.5 + randn(c).abs()
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(7)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for L, (width, n) in enumerate(zip((64, 128, 256, 512), layers), start=1):
+        for i in range(n):
+            stride, base = (2 if i == 0 and L > 1 else 1), f"layer{L}.{i}"
+            widths = [width, width] if block == "basic" else [width, width, 4 * width]
+            for j, (w, k) in enumerate(zip(widths, (3, 3) if block == "basic" else (1, 3, 1)), 1):
+                conv(f"{base}.conv{j}", w, cin if j == 1 else widths[j - 2], k)
+                bn(f"{base}.bn{j}", w)
+            if stride != 1 or cin != widths[-1]:
+                conv(f"{base}.downsample.0", widths[-1], cin, 1)
+                bn(f"{base}.downsample.1", widths[-1])
+            cin = widths[-1]
+    sd["fc.weight"], sd["fc.bias"] = 0.05 * randn(num_classes, cin), torch.zeros(num_classes)
+    return sd
+
+
+def _outputs(out) -> list:
+    return [t for o in out for t in _outputs(o)] if isinstance(out, (list, tuple)) else [out]
+
+
+def zoo_forwards(dev, rng) -> tuple:
+    """(1) Each zoo network at full width on the card, float32, seeded with
+    ``init_flax_default_``: its parameter count, and its forward of one
+    seeded ``ZOO_FORWARD_HW``^2 image against the same weights on the CPU
+    (through ``state_dict``) within rel 1e-3 of each output's scale, as the
+    W32 forward. Returns (record, {name: card net}, {name: card outputs})."""
+    import torch
+
+    from human_pose_tpu_torch import models
+    from human_pose_tpu_torch.utils import count_params
+
+    x = torch.from_numpy(rng.standard_normal((1, 3, ZOO_FORWARD_HW, ZOO_FORWARD_HW), dtype=np.float32))
+    rec, nets, outs = {}, {}, {}
+    for name, (cls, kw, params) in ZOO_NETS.items():
+        t0 = time.perf_counter()
+        net = getattr(models, cls)(**kw, device=dev)
+        models.init_flax_default_(net, torch.Generator().manual_seed(SEED)).eval()
+        cpu = getattr(models, cls)(**kw, device="cpu").eval()
+        cpu.load_state_dict(net.state_dict())
+        with torch.no_grad():
+            got, want = _outputs(net(x.to(dev))), _outputs(cpu(x))
+        rel = max(float((g.cpu() - w).abs().max() / w.abs().max().clamp(min=1e-3))
+                  for g, w in zip(got, want))
+        n = count_params(net)
+        if n != params or len(got) != len(want) or rel > 1e-3:
+            raise AssertionError(f"zoo {name}: {n} parameters (want {params}), card fp32 forward "
+                                 f"vs CPU max rel err {rel}")
+        rec[name] = {"params": n, "outputs": [tuple(g.shape) for g in got], "forward_rel_err": rel,
+                     "seconds": time.perf_counter() - t0}
+        log(f"zoo {name}: {n} parameters; card fp32 forward == CPU on a {ZOO_FORWARD_HW}^2 image "
+            f"(outputs {rec[name]['outputs']}, max rel err {rel:.3g} <= 1e-3)")
+        nets[name], outs[name] = net, got
+    return rec, nets, outs
+
+
+def zoo_sppe_parse(dev, outs: dict) -> dict:
+    """(2) ``sppe_parse`` on the card == on the CPU, exactly: on the SPPE
+    networks' outputs and on a map of ties (an all-equal plane, two equal
+    maxima, a tied row and a tied column), whose joints are also the first
+    row-major maxima."""
+    import torch
+
+    from human_pose_tpu_torch.ops import sppe_parse
+
+    ties = torch.zeros((2, 4, 7, 9))
+    ties[0, 1, 4, 1] = ties[0, 1, 1, 5] = 9.0
+    ties[1, 2, 2, :] = 9.0
+    ties[1, 3, :, 6] = 9.0
+    maps = {"ties": ties, **{name: outs[name][0].cpu() for name in ZOO_SPPE_ARCHS}}
+    rec = {}
+    for name, m in maps.items():
+        got, want = sppe_parse(m.to(dev)).cpu(), sppe_parse(m)
+        if not torch.equal(got, want):
+            raise AssertionError(f"zoo sppe_parse on {name}: card != CPU")
+        rec[name] = tuple(m.shape)
+    first = torch.tensor([[0.0, 0.0, 0.0], [5.0, 1.0, 9.0]])
+    if not torch.equal(sppe_parse(ties)[0, 0, :2], first):
+        raise AssertionError("zoo sppe_parse: ties do not go to the first row-major maximum")
+    log(f"zoo sppe_parse: card == CPU on {rec}")
+    return rec
+
+
+def zoo_ae_hourglass(net, dev, rng, counted, smi: str) -> dict:
+    """(3) ``InferenceKeypointsModel`` on the full-width AE hourglass at
+    ``SIZE`` with flip, as phase 6's (b): ``__call__`` on a seeded 480x640
+    raw image with exactly one launch of the dense refine and of the
+    grouping; each kernel's output on that call's inputs equal to its plain
+    version's on the card; both kernels' times and bounds; ms an image of
+    the device part (CUDA events) in float32 and bfloat16 and of
+    ``__call__`` (host wall)."""
+    import torch
+
+    from human_pose_tpu_torch.inference import InferenceKeypointsModel
+    from human_pose_tpu_torch.ops import cuda_decode, cuda_match
+
+    kw = dict(det_thr=DET_THR, tag_thr=TAG_THR, max_num_people=M, input_size=SIZE, use_flip=True)
+    im = InferenceKeypointsModel(net, device=dev, **kw)
+    raw = rng.integers(0, 256, (*INFER_RAW_HW, 3), dtype=np.uint8)
+    want = {"match_by_tag": 1, "refine_argmax": 1}
+    result, launches = counted(lambda: im(raw), "zoo AE hourglass __call__ (flip, E=2)", want)
+    if not (np.isfinite(result.kpts_coords).all() and result.kpts_tags.shape[-1] == 2
+            and result.kpts_heatmaps.shape[-1] == K):
+        raise AssertionError("zoo AE hourglass: result malformed")
+    seen = record_kernel_inputs(lambda: im(raw))
+    hm, tg, prev, cnt = seen["refine_argmax"]
+    cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
+    refine_equal = torch.equal(cuda_decode.refine_argmax_batch(hm, tg, prev, cnt),
+                               cuda_decode.refine_argmax_batch_plain(hm, tg, prev, cnt))
+    t0 = time.perf_counter()
+    plain = cuda_match.match_by_tag_batched_plain(cand, det_thr, tag_thr, order, persons)
+    torch.cuda.synchronize()
+    match_plain_ms = (time.perf_counter() - t0) * 1e3
+    got = cuda_match.match_by_tag_batched(cand, det_thr, tag_thr, order, persons)
+    match_equal = all(torch.equal(a, b) for a, b in zip(got, plain))
+    if not (refine_equal and match_equal):
+        raise AssertionError(f"zoo AE hourglass: kernel vs plain on the call's inputs: refine "
+                             f"{refine_equal}, grouping {match_equal}")
+    rec = {"launches": launches, "persons": len(result.kpts_coords),
+           "model_input_hw": im.model_input_shape, **path_kernel_times(lambda: im(raw)),
+           "refine_plain_ms": cuda_ms(lambda: cuda_decode.refine_argmax_batch_plain(hm, tg, prev, cnt),
+                                      iters=2),
+           "match_plain_ms": match_plain_ms, "match_valid_rows": int((cand[..., 2] > DET_THR).sum())}
+    xs, hw, valid_hw = infer_inputs(rng, INFER_CONFIGS["b"], dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        im_t = im if dtype == torch.float32 else InferenceKeypointsModel(net, device=dev, dtype=dtype, **kw)
+        fn = lambda: infer_device_part(im_t, xs, hw, valid_hw)  # noqa: E731
+        warm_up(lambda: (fn(), torch.cuda.synchronize()), INFER_WARMUP_S)
+        rec[f"ms_{str(dtype).split('.')[-1]}"] = cuda_ms(fn, iters=3, warmup=0, reps=3)
+    rec["call_host_ms"] = host_ms(lambda: im(raw), iters=3)
+    log(f"zoo AE hourglass (flip, {im.model_input_shape}): {rec['persons']} persons, one launch of "
+        f"each kernel, each == plain on the call's inputs; refine {rec['refine_ms']:.4f} ms (bound "
+        f"{rec['refine_bound_ms']:.4f}, plain {rec['refine_plain_ms']:.2f}), grouping "
+        f"{rec['match_ms']:.4f} ms (plain {match_plain_ms:.0f}); an image {rec['ms_float32']:.3f} ms "
+        f"float32, {rec['ms_bfloat16']:.3f} bfloat16 (events), __call__ {rec['call_host_ms']:.3f} "
+        f"ms host wall  [{smi}]")
+    return rec
+
+
+def zoo_sppe_inference(nets: dict, dev, rng, counted, smi: str) -> dict:
+    """(4) ``InferenceSPPEModel`` from the port's config (the architecture's
+    default ``net.params``, float32 on the card) on a seeded 480x640 raw
+    image, with the weights of (1) loaded: no decode kernel launched, the
+    joints of the card's heatmaps equal to ``sppe_parse`` of them on the
+    CPU; ms an image of ``forward_decode`` (CUDA events) and of
+    ``__call__`` (host wall) in float32 and bfloat16."""
+    import torch
+
+    from human_pose_tpu_torch.configs import KeypointsConfig
+    from human_pose_tpu_torch.inference import InferenceSPPEModel
+    from human_pose_tpu_torch.ops import sppe_parse
+
+    raw = rng.integers(0, 256, (*INFER_RAW_HW, 3), dtype=np.uint8)
+    out = {}
+    for name, arch in ZOO_SPPE_ARCHS.items():
+        cfg = KeypointsConfig.from_dict({"setup": {"architecture": arch},
+                                         "trainer": {"accelerator": "gpu"},
+                                         "inference": {"ckpt_path": None, "input_size": SIZE}})
+        im = cfg.create_inference_model()
+        if not (isinstance(im, InferenceSPPEModel) and im.device == dev and im.dtype == torch.float32):
+            raise AssertionError(f"zoo {name}: config gave {type(im).__name__} on {im.device}")
+        im.model.load_state_dict(nets[name].state_dict())
+        result, _ = counted(lambda: im(raw), f"zoo {name} SPPE __call__", {})
+        x = torch.from_numpy(im.prepare_input(raw)[0]).permute(0, 3, 1, 2).contiguous().to(dev)
+        hw = tuple(x.shape[2:])
+        avg, joints = im.forward_decode(x, hw)
+        if not (torch.equal(joints.cpu(), sppe_parse(avg.cpu())) and result.kpts_coords.shape == (1, K, 2)
+                and np.isfinite(result.kpts_coords).all()):
+            raise AssertionError(f"zoo {name}: SPPE joints card != sppe_parse on the CPU, or malformed")
+        rec = {"input_hw": hw, "obj_score": float(result.obj_scores[0])}
+        for dtype in (torch.float32, torch.bfloat16):
+            im_t = im if dtype == torch.float32 else InferenceSPPEModel(
+                im.model, input_size=SIZE, dtype=dtype, device=dev)
+            fn = lambda: im_t.forward_decode(x, hw)  # noqa: E731
+            warm_up(lambda: (im_t(raw), torch.cuda.synchronize()), INFER_WARMUP_S)
+            d = str(dtype).split(".")[-1]
+            rec[f"ms_{d}"] = cuda_ms(fn, iters=3, warmup=0, reps=3)
+            rec[f"call_host_ms_{d}"] = host_ms(lambda: im_t(raw), iters=ZOO_CALLS)
+        log(f"zoo {name} SPPE at {hw}: joints card == CPU parse; an image {rec['ms_float32']:.3f} ms "
+            f"float32, {rec['ms_bfloat16']:.3f} bfloat16 (events), __call__ "
+            f"{rec['call_host_ms_float32']:.3f} / {rec['call_host_ms_bfloat16']:.3f} ms host wall  [{smi}]")
+        out[name] = rec
+    return out
+
+
+def zoo_torchvision(dev, rng) -> dict:
+    """(5) A torchvision-layout resnet50 state dict made here loads strictly
+    (``load_torchvision_backbone``: ``fc`` dropped, ``num_batches_tracked``
+    ignored) into ``SimpleBaseline``'s backbone on the card: every tensor
+    equal, the forward finite."""
+    import torch
+
+    from human_pose_tpu_torch.models import SimpleBaseline
+    from human_pose_tpu_torch.utils import load_torchvision_backbone
+
+    t0 = time.perf_counter()
+    sd = torchvision_resnet_state_dict("resnet50", rng)
+    net = load_torchvision_backbone(SimpleBaseline(K, "resnet50", device=dev), sd).eval()
+    loaded = net.backbone.state_dict()
+    same = all(torch.equal(loaded[k].cpu(), v) for k, v in sd.items()
+               if not k.startswith("fc.") and not k.endswith("num_batches_tracked"))
+    with torch.no_grad():
+        hms = net(torch.zeros((1, 3, 256, 192), device=dev))[0]
+    if not (same and bool(torch.isfinite(hms).all())):
+        raise AssertionError("zoo torchvision: the resnet50 state dict did not load into the backbone")
+    rec = {"keys": len(sd), "heatmaps": tuple(hms.shape), "seconds": time.perf_counter() - t0}
+    log(f"zoo torchvision: a resnet50 state dict of {len(sd)} keys into SimpleBaseline.backbone on "
+        f"the card, strictly (fc dropped), every tensor equal; heatmaps {rec['heatmaps']}")
+    return rec
+
+
+def zoo_phase(dev, counted, smi: str) -> dict:
+    """Phase 14: the model zoo on the card: ``zoo_forwards`` (1),
+    ``zoo_sppe_parse`` (2), ``zoo_ae_hourglass`` (3), ``zoo_sppe_inference``
+    (4) and ``zoo_torchvision`` (5). Raises on any miss; returns the phase's
+    record."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    out = {"card": smi}
+    out["forwards"], nets, outs = zoo_forwards(dev, rng)
+    out["sppe_parse"] = zoo_sppe_parse(dev, outs)
+    out["ae_hourglass"] = zoo_ae_hourglass(nets["AEHourglassNet"], dev, rng, counted, smi)
+    out["launches"] = out["ae_hourglass"]["launches"]
+    out["sppe"] = zoo_sppe_inference(nets, dev, rng, counted, smi)
+    out["torchvision"] = zoo_torchvision(dev, rng)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 (model zoo): {out['seconds']:.1f}s")
+    return out
+
+
+def zoo_only(dev, smi: str) -> int:
+    """Phase 14 alone: build the dense refine and the grouping, then the
+    model zoo phase. Prints the phase's record as one JSON object last."""
+    from human_pose_tpu_torch.ops import _build
+
+    log(f"build: per kernel {_build.build_kernels(('refine_argmax', 'match_by_tag'))}")
+    counted = make_counted(kernel_counters())
+    print(json.dumps({"zoo": zoo_phase(dev, counted, smi)}), flush=True)
+    return 0
+
+
 def refine_only(dev, rng, smi: str) -> int:
     """The short loop for the dense refine: build, SASS counts, parity, then
     its time on the main path's and the dense scene's inputs and over a
@@ -3951,6 +4306,8 @@ def main() -> int:
                         help="run the ImageNet classification phase alone (it builds no kernel)")
     parser.add_argument("--serve-only", action="store_true",
                         help="build the decode's kernels and run the serving and export phase alone")
+    parser.add_argument("--zoo-only", action="store_true",
+                        help="build the decode's two kernels and run phase 14 (the model zoo) alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -4006,6 +4363,8 @@ def main() -> int:
         return classification_only(dev, smi)
     if args.serve_only:
         return serve_only(dev, smi)
+    if args.zoo_only:
+        return zoo_only(dev, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -4236,6 +4595,9 @@ def main() -> int:
     # 13. serving and export
     serve_rec = serve_phase(dev, counted, smi)
 
+    # 14. the model zoo
+    zoo_rec = zoo_phase(dev, counted, smi)
+
     # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
     dense_in = record_kernel_inputs(decode_dense)
@@ -4248,7 +4610,8 @@ def main() -> int:
              "train_data_val": train_data_rec["launches"],
              "train_engine": train_engine_rec["launches"],
              "classification": cls_rec["launches"],
-             "serve": serve_rec["launches"]}
+             "serve": serve_rec["launches"],
+             "zoo": zoo_rec["launches"]}
 
     def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
         return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
@@ -4273,14 +4636,21 @@ def main() -> int:
         ms_infer_e2={key: r["refine_ms"] for key, r in infer_rec["e2_kernels"].items()},
         infer_e2={key: {k_: v for k_, v in r.items() if k_.startswith("refine")}
                   for key, r in infer_rec["e2_kernels"].items()},
-        eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("refine")}))
+        eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("refine")},
+        zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("refine")}))
     cand, _, _, order, persons = main_in["match_by_tag"]
+    # the plain grouping runs one image after another (~4 s an image on the
+    # card): timed on the first MATCH_PLAIN_IMAGES images, the kernel too
+    cand_p = cand[:MATCH_PLAIN_IMAGES]
     kernels.append(row(
         "match_by_tag", "main", "exact joints and count",
         cuda_ms(lambda: cuda_match.match_by_tag_batched(cand, DET_THR, TAG_THR, order, persons), iters=20),
-        host_ms(lambda: (cuda_match.match_by_tag_batched_plain(cand, DET_THR, TAG_THR, order, persons),
+        host_ms(lambda: (cuda_match.match_by_tag_batched_plain(cand_p, DET_THR, TAG_THR, order, persons),
                          torch.cuda.synchronize())),
         match_bound(cand, persons), None,
+        plain_images=MATCH_PLAIN_IMAGES,
+        ms_plain_images=cuda_ms(lambda: cuda_match.match_by_tag_batched(
+            cand_p, DET_THR, TAG_THR, order, persons), iters=20),
         ms_dense_scene=cuda_ms(lambda: cuda_match.match_by_tag_batched(*dense_in["match_by_tag"]), iters=20),
         ms_fused=cuda_ms(lambda: cuda_match.match_by_tag_batched(*fused_in["match_by_tag"]), iters=20),
         shape=f"B{BATCH} K{K} M{cand.shape[2]} E{cand.shape[3] - 3} P{persons}",
@@ -4288,7 +4658,8 @@ def main() -> int:
         ms_infer_e2={key: r["match_ms"] for key, r in infer_rec["e2_kernels"].items()},
         infer_e2={key: {k_: v for k_, v in r.items() if k_.startswith("match")}
                   for key, r in infer_rec["e2_kernels"].items()},
-        eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("match")}))
+        eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("match")},
+        zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("match")}))
     kernels.append(row(
         "match_by_tag_per_image", "per_image", "exact joints and count; equal to match_by_tag",
         cuda_ms(lambda: cuda_match.match_by_tag_per_image(cand_s, DET_THR, TAG_THR, order_s, persons_s),
@@ -4365,6 +4736,7 @@ def main() -> int:
     print(json.dumps({"train_engine": train_engine_rec}), flush=True)
     print(json.dumps({"classification": cls_rec}), flush=True)
     print(json.dumps({"serve": serve_rec}), flush=True)
+    print(json.dumps({"zoo": zoo_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -35,23 +35,31 @@ class KeypointsConfig(BaseConfig):
 
     def create_net(self, bn_groups: int = 1, device=None):
         """The port's network for ``setup.architecture`` (default
-        HigherHRNet) from ``net.params``, on ``device`` (default
-        ``target_device()``), weights not yet loaded."""
-        from ..models import HigherHRNet
+        HigherHRNet; Hourglass is the AE hourglass, SimpleBaseline and HRNet
+        the single-person models) from ``net.params``, on ``device``
+        (default ``target_device()``), weights not yet loaded."""
+        from .. import models
 
         if bn_groups != 1:
             raise NotImplementedError("bn_groups > 1 (per-device BatchNorm statistics) comes with "
                                       "the port's parallelism, ROADMAP module 14")
         arch = self.setup.architecture or "HigherHRNet"
-        if arch in ("Hourglass", "SimpleBaseline", "HRNet"):
-            raise NotImplementedError(f"architecture {arch!r} comes with the port's model zoo, "
-                                      "ROADMAP module 15")
-        if arch != "HigherHRNet":
-            raise ValueError(f"unknown keypoints architecture {arch!r} "
-                             f"(expected one of {ARCHITECTURES})")
         params = {k: tuple(v) if isinstance(v, list) else v
                   for k, v in dict(self.net.params).items() if k not in JAX_ONLY_NET_PARAMS}
-        return HigherHRNet(**params, device=device or self.target_device())
+        device = device or self.target_device()
+        if arch == "HigherHRNet":
+            return models.HigherHRNet(**params, device=device)
+        if arch == "Hourglass":
+            return models.AEHourglassNet(num_kpts=params.get("num_kpts", 17),
+                                         num_stages=params.get("num_stages", 2), device=device)
+        if arch == "SimpleBaseline":
+            return models.SimpleBaseline(num_kpts=params.get("num_kpts", 17),
+                                         backbone=params.get("backbone", "resnet50"), device=device)
+        if arch == "HRNet":
+            params["num_keypoints"] = params.pop("num_kpts", 17)
+            return models.HRNetSPPE(**params, device=device)
+        raise ValueError(f"unknown keypoints architecture {arch!r} "
+                         f"(expected one of {ARCHITECTURES})")
 
     def _make_transform(self):
         """``KeypointsTransform`` from the ``transform`` section; compact
@@ -123,9 +131,14 @@ class KeypointsConfig(BaseConfig):
         ``target_device()``), in ``compute_dtype()``, with the keypoints
         init seeded from ``setup.seed`` and the yaml's optimizer and
         schedulers; host batches staged in pinned memory when
-        ``dataloader.pin_memory`` is set."""
+        ``dataloader.pin_memory`` is set. HigherHRNet only: training the
+        model zoo's architectures is not ported yet."""
         from ..train.module import KeypointsModule
 
+        arch = self.setup.architecture or "HigherHRNet"
+        if arch != "HigherHRNet":
+            raise NotImplementedError(f"training {arch!r} comes with the port's zoo training, "
+                                      "ROADMAP module 15c; the architecture builds and infers")
         model = self.create_net(bn_groups=self.bn_groups(mesh), device=device)
         return KeypointsModule.create(
             model,
@@ -139,12 +152,16 @@ class KeypointsConfig(BaseConfig):
         )
 
     def create_inference_model(self, ckpt_path: str | None = None, device=None):
-        """``InferenceKeypointsModel`` on the network, weights from
-        ``ckpt_path`` or ``inference.ckpt_path`` (a flax npz or a reference
-        ``.pt``, ``load_inference_weights``); without one, seeded random
-        weights (``init_flax_default_``, seed 0, as JAX's ``PRNGKey(0)``)
-        and a warning."""
-        from ..inference.models import InferenceKeypointsModel, load_inference_weights
+        """The inference model on the network: ``InferenceSPPEModel`` for
+        the single-person architectures (HRNet, SimpleBaseline: no AE tags,
+        the argmax decode), ``InferenceKeypointsModel`` otherwise; weights
+        from ``ckpt_path`` or ``inference.ckpt_path`` (a flax npz or a
+        reference ``.pt``, ``load_inference_weights``); without one, seeded
+        random weights (``init_flax_default_``, seed 0, as JAX's
+        ``PRNGKey(0)``) and a warning."""
+        from ..inference.models import (
+            InferenceKeypointsModel, InferenceSPPEModel, load_inference_weights,
+        )
         from ..models import init_flax_default_
 
         net = self.create_net(device=device)
@@ -155,6 +172,16 @@ class KeypointsConfig(BaseConfig):
             log.warning("no inference ckpt_path given — using random weights")
             init_flax_default_(net, torch.Generator().manual_seed(0))
         net.eval()
+        device = next(net.parameters()).device
+        if (self.setup.architecture or "HigherHRNet") in ("HRNet", "SimpleBaseline"):
+            return InferenceSPPEModel(
+                net,
+                det_thr=self.inference.det_thr,
+                input_size=self.inference.input_size,
+                compact_inputs=self.inference.compact_inputs,
+                dtype=self.compute_dtype(),
+                device=device,
+            )
         return InferenceKeypointsModel(
             net,
             det_thr=self.inference.det_thr,
@@ -166,7 +193,7 @@ class KeypointsConfig(BaseConfig):
             pipeline_devices=self.inference.pipeline_devices,
             compact_inputs=self.inference.compact_inputs,
             dtype=self.compute_dtype(),
-            device=next(net.parameters()).device,
+            device=device,
         )
 
 

@@ -2,8 +2,8 @@
 math, normalization, the keypoints training augmentations and the
 classification crops, the heatmap and joints targets (with the native
 splat), COCO masks, the COCO dataset with its mosaic and ``collate``, the
-ImageNet dataset and ``collate_classification``, the loader, directory and
-video datasets."""
+ImageNet dataset and ``collate_classification``, the MPII reader and joint
+layout, the loader, directory and video datasets."""
 
 from .affine import (
     affine_transform_point,
@@ -24,6 +24,7 @@ from .coco import (
 )
 from .imagenet import ImagenetClassificationDataset, collate_classification
 from .loader import DataLoader
+from .mpii import MPII_FLIP_INDEX, MPII_LABELS, MPII_LIMBS, MpiiKeypointsDataset
 from .rle import get_crowd_mask, polygons_to_mask, segmentation_to_mask
 from .targets import HeatmapGenerator, JointsGenerator
 from .transforms import (
@@ -59,6 +60,10 @@ __all__ = [
     "InferenceVideoDataset",
     "JointsGenerator",
     "KeypointsTransform",
+    "MPII_FLIP_INDEX",
+    "MPII_LABELS",
+    "MPII_LIMBS",
+    "MpiiKeypointsDataset",
     "NormalizeKeypoints",
     "RandomAffineTransform",
     "RandomHorizontalFlip",

@@ -1,11 +1,13 @@
 """Inference: the keypoints model (flip and multi-scale TTA, 64-aligned
-resize, the AE decode on the device), the classification model (center
-crop, softmax on the device), their result objects and plots, the batched
-COCO evaluator and the dynamic-batching server (``serving``). The SPPE model
-comes later."""
+resize, the AE decode on the device), the single-person (SPPE) model (the
+argmax decode on the device), the classification model (center crop,
+softmax on the device), their result objects and plots, the batched COCO
+evaluator and the dynamic-batching server (``serving``)."""
 
 from .batched_eval import BatchedKeypointsEvaluator, evaluate_dataset_batched, image_id_from_path
-from .models import InferenceClassificationModel, InferenceKeypointsModel, load_inference_weights
+from .models import (
+    InferenceClassificationModel, InferenceKeypointsModel, InferenceSPPEModel, load_inference_weights,
+)
 from .results import ClassificationResult, InferenceKeypointsResult, KeypointsResult
 from .serving import (
     BatchedClassificationPredictor, BatchedKeypointsPredictor, DynamicBatcher, PreparedClassRequest,
@@ -22,6 +24,7 @@ __all__ = [
     "InferenceClassificationModel",
     "InferenceKeypointsModel",
     "InferenceKeypointsResult",
+    "InferenceSPPEModel",
     "KeypointsResult",
     "PreparedClassRequest",
     "PreparedRequest",

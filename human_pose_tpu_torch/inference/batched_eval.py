@@ -111,6 +111,12 @@ class BatchedKeypointsEvaluator:
         max_pending: int | None = None,
         compute_oks: bool = True,
     ):
+        if not hasattr(model, "decode_masked"):
+            # JAX's evaluator fails on an SPPE model's missing attributes
+            raise TypeError(
+                f"{type(model).__name__} has no batched decode: the batched evaluator takes the "
+                "bottom-up InferenceKeypointsModel only; evaluate a single-person model with "
+                "--batch_size=1")
         if 1.0 not in model.scales:
             # the serial path's contract: tags and the decode geometry come
             # from the scale-1 pass

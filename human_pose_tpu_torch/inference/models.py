@@ -1,13 +1,14 @@
 """The inference models: host preprocess + device forward (and decode)
-(port of ``InferenceKeypointsModel`` and ``InferenceClassificationModel`` of
-human_pose_tpu/inference/models.py).
+(port of ``InferenceKeypointsModel``, ``InferenceSPPEModel`` and
+``InferenceClassificationModel`` of human_pose_tpu/inference/models.py).
 
 Counterpart of reference src/keypoints/model.py:43-111: 64-aligned resize,
 flip and multi-scale TTA, the AE decode, the inverse affine back to the raw
 image. The forward, the flip forward, the stage aggregation, the resizes and
 the decode run on the model's device (the decode's grouping and refine as
 the CUDA kernels of ``ops`` on a card); the host prepares the input and
-receives what the result object needs. The classification model resizes
+receives what the result object needs. The single-person model decodes
+one person an image by argmax (``ops/sppe.py``) on the device. The classification model resizes
 and center-crops on the host and runs the forward and the softmax on the
 device.
 """
@@ -29,6 +30,7 @@ from ..ops.decode import decode_batch
 from ..ops.flip import flip_back, merge_flip_heatmaps
 from ..ops.heatmaps import average_stages, resize_bilinear
 from ..ops.images import prep_images
+from ..ops.sppe import sppe_parse
 from ..utils.weights import read_state_dict
 from .results import ClassificationResult, InferenceKeypointsResult
 
@@ -278,6 +280,92 @@ def _to_device(xs: np.ndarray, device: torch.device) -> torch.Tensor:
     if x.dtype != torch.uint8:
         x = x.to(torch.float32)
     return x.contiguous().to(device)
+
+
+class InferenceSPPEModel:
+    """Single-person inference: forward + argmax decode, the SPPE analog of
+    ``InferenceKeypointsModel`` (reference grouping.py:10-52,
+    SPPEHeatmapParser). Drives ``HRNetSPPE``, ``SimpleBaseline`` and
+    ``HourglassNet``: models returning a list of heatmap stages and no AE
+    tags. One person an image; joints are decoded at the input size and
+    mapped back to the raw image by the bottom-up path's inverse affine.
+    No flip, no scales, no batching: the serving predictor and the batched
+    evaluator refuse it, as the JAX package's do."""
+
+    limbs = COCO_LIMBS
+
+    def __init__(self, model: nn.Module, det_thr: float = 0.2, input_size: int = 512,
+                 compact_inputs: bool = False, dtype: torch.dtype = torch.float32,
+                 device: str | torch.device = "cuda"):
+        """``model`` in eval mode, already on ``device`` (default
+        ``"cuda"``: raises without a card). ``dtype`` bfloat16 runs the
+        forward under ``torch.autocast`` (heatmaps stay float32);
+        ``compact_inputs`` ships uint8 pixels and normalizes on the
+        device."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        self.device = _model_device(model, device)
+        self.model = model
+        self.dtype = dtype
+        self.det_thr = det_thr
+        self.tag_thr = 0.0  # unused; kept for the result and CLI interface
+        self.input_size = input_size
+        self.compact_inputs = compact_inputs
+        self.model_input_shape: tuple | None = None
+
+    @torch.no_grad()
+    def forward_decode(self, x: torch.Tensor, hw: tuple):
+        """Forward ``x`` (``[N, 3, H, W]`` on the model's device, uint8 or
+        float), average the stages, resize to ``hw`` and decode: (avg
+        ``[N, K, h, w]``, joints ``[N, 1, K, 3]``), on the device."""
+        x = prep_images(x)
+        if self.dtype == torch.float32:
+            out = self.model(x)
+        else:
+            with torch.autocast(self.device.type, dtype=self.dtype):
+                out = self.model(x)
+        stages_hms = out[0] if isinstance(out, tuple) else out
+        avg = resize_bilinear(average_stages(stages_hms), *hw)
+        return avg, sppe_parse(avg)
+
+    def prepare_input(self, image: np.ndarray):
+        """The host batch of one image, 64-aligned at scale 1: ``[1, H, W,
+        3]``, uint8 with ``compact_inputs``, normalized float32 otherwise;
+        with the inverse affine's center and scale."""
+        resized, center, scale = resize_align_multi_scale(image, self.input_size, 1.0, 1.0)
+        if self.compact_inputs:
+            if resized.dtype != np.uint8:
+                raise ValueError(f"compact_inputs requires uint8 images, got {resized.dtype}")
+            return resized[None], center, scale
+        return normalize(resized)[None], center, scale
+
+    def __call__(self, raw_image: np.ndarray, annot=None) -> InferenceKeypointsResult:
+        x, center, scale_wh = self.prepare_input(raw_image)
+        h, w = x.shape[1:3]
+        self.model_input_shape = (h, w)
+        avg, joints = self.forward_decode(_to_device(x, self.device), (h, w))
+        joints = joints[0].cpu().numpy()  # [1, K, 3]
+        # a zero tag column, so the layout is the AE path's ([..., 3:])
+        joints = np.concatenate([joints, np.zeros_like(joints[..., :1])], axis=-1)
+        avg = avg[0].permute(1, 2, 0).cpu().numpy()
+        return InferenceKeypointsResult.from_decoded(
+            raw_image=raw_image,
+            annot=annot,
+            model_input_image=(
+                np.asarray(x[0]) if x.dtype == np.uint8
+                else inverse_normalize(np.asarray(x[0], np.float32))
+            ),
+            avg_heatmaps=avg,
+            tags_heatmaps=np.zeros((*avg.shape, 1), np.float32),
+            joints=joints,
+            obj_scores=joints[..., 2].mean(axis=-1),
+            valid=np.ones((1,), bool),
+            center=center,
+            scale=scale_wh,
+            det_thr=self.det_thr,
+            tag_thr=self.tag_thr,
+            limbs=self.limbs,
+        )
 
 
 class InferenceClassificationModel:

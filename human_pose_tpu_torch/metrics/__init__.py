@@ -1,5 +1,6 @@
 from .cocoeval import SIGMAS, COCOKeypointsEval, compute_oks_matrix
 from .oks import K_I, VARIANCES, image_OKS, match_preds_to_targets, object_OKS
+from .pckh import pckh
 
 __all__ = [
     "K_I",
@@ -10,4 +11,5 @@ __all__ = [
     "COCOKeypointsEval",
     "compute_oks_matrix",
     "SIGMAS",
+    "pckh",
 ]

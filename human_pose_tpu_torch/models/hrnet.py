@@ -27,6 +27,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from ..device import resolve_device
 from .norm import batch_norm, frozen_running_stats
 
 # remat index of the stem (two stride-2 convs); 0-3 are the stages
@@ -277,3 +278,26 @@ class HRNetBackbone(nn.Module):
         for s, stage in enumerate(self.stages):
             xs = rematerialized(stage, xs) if s in remat else stage(xs)
         return xs
+
+
+class HRNetSPPE(nn.Module):
+    """Single-person HRNet head (reference hrnet.py:388-400): the backbone's
+    single 1/4-scale output, a biased 1x1 ``final_conv`` and a softmax over
+    the keypoint (channel) dim, in float32 whatever the compute dtype.
+    Returns a list of one stage. Built on ``device`` (default ``"cuda"``:
+    raises when no card is present)."""
+
+    def __init__(self, num_keypoints: int = 17, C: int = 32,
+                 num_blocks_per_stage: Sequence[int] = (1, 1, 4, 3), num_units: int = 4,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.backbone = HRNetBackbone(C, final_stage_single_scale=True,
+                                      num_blocks_per_stage=num_blocks_per_stage,
+                                      num_units=num_units)
+        self.final_conv = nn.Conv2d(C, num_keypoints, 1)
+        self.to(dev)
+
+    def forward(self, images: torch.Tensor) -> list:
+        hms = self.final_conv(self.backbone(images)[0]).float()
+        return [torch.softmax(hms, dim=1)]

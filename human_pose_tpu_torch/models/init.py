@@ -55,14 +55,18 @@ def init_flax_default_(model: nn.Module, generator: torch.Generator) -> nn.Modul
 def init_keypoints_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The keypoints training init: every conv and transposed-conv kernel
     drawn from N(0, 0.001), every conv bias zeroed, BN left as it is ((1, 0)
-    on a new model). Draws on the CPU from ``generator``, so a seed gives the
-    same weights on every device; the JAX package's ``fold_in`` stream is not
-    reproduced, only the distribution."""
+    on a new model); a Linear (``SEBlock``'s) keeps flax's ``Dense`` default
+    (``_flax_dense_``: the JAX init leaves 2-D kernels and zeroes biases).
+    Draws on the CPU from ``generator``, so a seed gives the same weights on
+    every device; the JAX package's ``fold_in`` stream is not reproduced,
+    only the distribution."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.weight.copy_(torch.empty(m.weight.shape).normal_(generator=generator) * 0.001)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            _flax_dense_(m, generator)
     return model
 
 

@@ -18,6 +18,7 @@ from .heatmaps import average_stages, match_heatmaps_size, resize_bilinear
 from .hungarian import hungarian, hungarian_batch
 from .images import prep_images
 from .phase import phase_gather, phase_index, sample_tags_bilinear
+from .sppe import sppe_parse
 
 __all__ = [
     "COCO_FLIP_INDEX", "JOINTS_ORDER", "adjust", "adjust_phase", "average_stages", "decode_batch",
@@ -29,5 +30,5 @@ __all__ = [
     "phase_index", "prep_images", "reference_basic_block", "refine", "refine_argmax",
     "refine_argmax_batch", "refine_argmax_batch_plain", "refine_argmax_phase_batch",
     "refine_argmax_phase_batch_plain", "refine_batch", "refine_batch_phase", "resize_bilinear",
-    "sample_tags_bilinear", "stack_flip_tags", "top_k",
+    "sample_tags_bilinear", "sppe_parse", "stack_flip_tags", "top_k",
 ]

@@ -6,8 +6,8 @@ human_pose_tpu/utils/profiling.py).
 counted from the first step this run executes, when ``trainer.profile_dir``
 is set; each step is annotated with ``record_function`` so the trace viewer
 groups work per training step. The trace is a Chrome trace (Perfetto or
-``chrome://tracing``) written into the directory. The rest of the JAX
-module (the named-scope helpers, the memory profile) is ROADMAP module 16.
+``chrome://tracing``) written into the directory. The JAX module has these
+three and nothing else; all three are here.
 
 Standalone use:
 

@@ -16,6 +16,13 @@ Layout conventions converted:
 * dense (the classifier): flax ``[in, out]`` -> torch ``[out, in]``
 * BatchNorm: scale/bias -> weight/bias; mean/var -> running_mean/running_var
 
+The model zoo's keys: ``ResNet`` (alone, or as ``SimpleBaseline``'s
+``backbone``) carries torchvision's names; ``SimpleBaseline``'s
+``deconv{i}`` / ``deconv_bn{i}`` / ``final``, ``HRNetSPPE``'s
+``final_conv`` and the hourglasses' ``trunk.*`` are the flax names joined
+with dots. ``resnet_variables_from_torchvision`` and
+``load_torchvision_backbone`` take a torchvision state dict.
+
 ``variables_from_torch`` goes the other way, so that weights the port holds
 load back into the JAX package; ``variables_from_state_dict`` does so
 without a JAX template (``flax_path_for``, the inverse of
@@ -31,6 +38,8 @@ import numpy as np
 
 __all__ = [
     "flax_path_for",
+    "load_torchvision_backbone",
+    "resnet_variables_from_torchvision",
     "strip_torch_prefixes",
     "torch_key_for",
     "variables_from_state_dict",
@@ -74,11 +83,54 @@ def _unit_child(base: str, rest: tuple[str, ...]) -> tuple[str, str]:
     return f"{base}.{'conv' if sub == 'conv' else 'bn'}{idx}", sub
 
 
+# the torch module names of a ResNet's own layers (torchvision's)
+_RESNET_TOP = ("conv1", "bn1", "fc")
+# the last name of an hourglass path: a ConvBnAct's conv or bn, or a head's
+# biased 1x1 conv
+_HOURGLASS_LEAF = ("conv", "bn", "heatmaps", "remap_feats", "remap_heatmaps", "tags")
+
+
+def _is_resnet(name: str) -> bool:
+    return name in _RESNET_TOP or name.startswith("layer")
+
+
+def _resnet_key(path: tuple[str, ...]) -> tuple[str, str]:
+    """A ``models.resnet.ResNet`` flax path as its torchvision prefix and
+    kind: ``conv1``, ``bn1``, ``fc``, ``layer{L}/b{i}/cb{j}/(conv|bn)`` ->
+    ``layer{L}.{i}.(conv|bn){j}``, ``layer{L}/b{i}/down/(conv|bn)`` ->
+    ``layer{L}.{i}.downsample.(0|1)``."""
+    if len(path) == 1 and path[0] in _RESNET_TOP:
+        return path[0], {"conv1": "conv", "bn1": "bn", "fc": "dense"}[path[0]]
+    if len(path) != 4 or not path[1].startswith("b") or path[3] not in ("conv", "bn"):
+        raise KeyError(f"unmapped ResNet path: {path}")
+    layer, unit, child, sub = path
+    base = f"{layer}.{int(unit[1:])}"
+    if child == "down":
+        return f"{base}.downsample.{0 if sub == 'conv' else 1}", sub
+    return f"{base}.{sub}{int(child[len('cb'):])}", sub
+
+
 def torch_key_for(path: tuple[str, ...]) -> tuple[str, str]:
     """Translate a flax variable path (module names only, no leaf) into the
     torch module prefix and its kind ("conv" | "deconv" | "dense" | "bn")."""
+    if _is_resnet(path[0]):
+        return _resnet_key(path)
+    if path[0] == "trunk" and path[-1] in _HOURGLASS_LEAF:
+        return ".".join(path), "bn" if path[-1] == "bn" else "conv"
+    if len(path) == 1:  # SimpleBaseline's head, HRNetSPPE's final_conv
+        name = path[0]
+        if name in ("init_heatmaps_head", "final", "final_conv"):
+            return name, "conv"
+        if name.startswith("deconv_bn"):
+            return f"deconv_bn{int(name[len('deconv_bn'):])}", "bn"
+        if name.startswith("deconv"):
+            return f"deconv{int(name[len('deconv'):])}", "deconv"
+        raise KeyError(f"unmapped flax path: {path}")
     if path[0] == "backbone":
         rest = path[1:]
+        if _is_resnet(rest[0]):  # SimpleBaseline's
+            prefix, kind = _resnet_key(rest)
+            return f"backbone.{prefix}", kind
         if rest[0] in ("stem1", "stem2"):
             n = rest[0][-1]
             return f"backbone.{'conv' if rest[1] == 'conv' else 'bn'}{n}", rest[1]
@@ -108,8 +160,6 @@ def torch_key_for(path: tuple[str, ...]) -> tuple[str, str]:
                 base = f"backbone.stages.{s}.transition_layer.transition_blocks.{idx}"
                 return f"{base}.{0 if sub == 'conv' else 1}", sub
         raise KeyError(f"unmapped backbone path: {path}")
-    if path[0] == "init_heatmaps_head":
-        return "init_heatmaps_head", "conv"
     if path[0].startswith("deconv"):
         base = f"deconv_layers.{int(path[0][len('deconv'):])}"
         inner = path[1]
@@ -135,7 +185,6 @@ def torch_key_for(path: tuple[str, ...]) -> tuple[str, str]:
             return f"{base}.final_conv.1", "bn"
         if inner == "classifier":
             return f"{base}.classifier", "dense"
-    # the SPPE head joins this grammar with its model
     raise KeyError(f"unmapped flax path: {path}")
 
 
@@ -153,7 +202,24 @@ def _sub(index: str) -> str:
     return "conv" if index == "0" else "bn"
 
 
-def _flax_path(parts: list[str]) -> tuple[str, ...]:
+def _resnet_path(parts: list[str]) -> tuple[str, ...]:
+    """Inverse of ``_resnet_key``."""
+    if len(parts) == 1:
+        return (parts[0],)
+    layer, unit = parts[0], f"b{parts[1]}"
+    if parts[2] == "downsample":
+        return (layer, unit, "down", _sub(parts[3]))
+    sub, n = parts[2][:-1], parts[2][-1]
+    return (layer, unit, f"cb{n}", sub)
+
+
+def _flax_path(parts: list[str], resnet_backbone: bool = False) -> tuple[str, ...]:
+    if _is_resnet(parts[0]):
+        return _resnet_path(parts)
+    if parts[0] == "trunk" or len(parts) == 1:  # the hourglasses; the SPPE heads
+        return tuple(parts)
+    if parts[0] == "backbone" and resnet_backbone:
+        return ("backbone", *_resnet_path(parts[1:]))
     if parts[0] == "backbone":
         rest = parts[1:]
         if len(rest) == 1:  # stem: conv1/bn1, conv2/bn2
@@ -175,8 +241,6 @@ def _flax_path(parts: list[str]) -> tuple[str, ...]:
             return ("backbone", stage, f"fusion{k // 2}", f"out{i}_in{j}_up", _sub(rest[7]))
         return ("backbone", stage, f"fusion{k // 2}", f"out{i}_in{j}_down{rest[7]}",
                 _sub(rest[8]))
-    if parts == ["init_heatmaps_head"]:
-        return ("init_heatmaps_head",)
     if parts[0] == "deconv_layers":
         base = f"deconv{parts[1]}"
         if parts[2] == "deconv":
@@ -197,19 +261,62 @@ def _flax_path(parts: list[str]) -> tuple[str, ...]:
     raise KeyError(".".join(parts))
 
 
-def flax_path_for(prefix: str) -> tuple[tuple[str, ...], str]:
+def flax_path_for(prefix: str, resnet_backbone: bool = False) -> tuple[tuple[str, ...], str]:
     """The inverse of ``torch_key_for``: a torch module prefix (no leaf) of
-    HigherHRNet or ClassificationHRNet as its flax variable path and kind.
-    Checked against ``torch_key_for``, so a prefix it cannot map back
-    raises ``KeyError``."""
+    a port model as its flax variable path and kind. ``resnet_backbone``
+    says that the model's ``backbone`` is a ResNet (``SimpleBaseline``),
+    whose ``backbone.conv1`` is HRNet's first stem conv otherwise. Checked
+    against ``torch_key_for``, so a prefix it cannot map back raises
+    ``KeyError``."""
     try:
-        path = _flax_path(prefix.split("."))
+        path = _flax_path(prefix.split("."), resnet_backbone)
         back, kind = torch_key_for(path)
     except (KeyError, IndexError, ValueError) as e:
         raise KeyError(f"unmapped torch prefix: {prefix}") from e
     if back != prefix:
         raise KeyError(f"unmapped torch prefix: {prefix} (maps back to {back})")
     return path, kind
+
+
+def resnet_variables_from_torchvision(state_dict: Mapping[str, Any]) -> dict:
+    """A torchvision ResNet state dict (any of resnet18..152: the weights
+    the reference's SimpleBaseline pulls through ``torch.hub``,
+    simple_baseline.py:17) as the flax variable tree of the JAX package's
+    ``models.resnet.ResNet``, ``fc`` included, ``num_batches_tracked``
+    dropped. A key outside torchvision's ResNet names raises."""
+    for key in state_dict:
+        if not _is_resnet(key.split(".")[0]):
+            raise KeyError(f"unrecognized torchvision key {key}")
+    return variables_from_state_dict(state_dict)
+
+
+def load_torchvision_backbone(model, state_dict: Mapping[str, Any],
+                              module: str | None = "backbone"):
+    """Load a torchvision ResNet state dict (tensors or arrays) into the
+    port's ResNet ``model.<module>`` (``SimpleBaseline``'s ``backbone``;
+    ``module=None`` for a bare ``ResNet``), in place, and return ``model``:
+    the reference's pretrained-backbone construction
+    (simple_baseline.py:17). ``fc`` is dropped when the ResNet has no
+    classifier and ``num_batches_tracked`` is ignored; every other key of
+    the ResNet must be given, with its shape, and no key besides."""
+    import torch
+
+    target = model if module is None else model.get_submodule(module)
+    drop_fc = getattr(target, "fc", None) is None
+    sd = {k: v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in state_dict.items()
+          if not k.endswith("num_batches_tracked") and not (drop_fc and k.split(".")[0] == "fc")}
+    own = {k: v for k, v in target.state_dict().items() if not k.endswith("num_batches_tracked")}
+    missing, unexpected = sorted(own.keys() - sd.keys()), sorted(sd.keys() - own.keys())
+    if missing or unexpected:
+        raise KeyError(f"torchvision state dict vs {type(target).__name__}: missing "
+                       f"{missing[:8]}, unexpected {unexpected[:8]}")
+    for key, value in sd.items():
+        if tuple(value.shape) != tuple(own[key].shape):
+            raise ValueError(f"shape mismatch at {key}: torchvision {tuple(value.shape)} vs "
+                             f"{tuple(own[key].shape)}")
+    target.load_state_dict(sd, strict=False)  # strict but for num_batches_tracked
+    return model
 
 
 _TORCH_LEAF = {"weight": ("params", None), "bias": ("params", "bias"),
@@ -220,15 +327,18 @@ def variables_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
     """A reference-layout torch state dict (tensors or arrays) as a flax
     ``{"params", "batch_stats"}`` tree of numpy arrays in flax's names and
     shapes, without a template: the inverse of ``variables_to_torch``
-    (prefixes stripped, ``num_batches_tracked`` dropped)."""
+    (prefixes stripped, ``num_batches_tracked`` dropped). A ``backbone``
+    with ``layer{L}`` units is a ResNet (``SimpleBaseline``)."""
     out: dict = {"params": {}, "batch_stats": {}}
-    for key, value in strip_torch_prefixes(state_dict).items():
+    state_dict = strip_torch_prefixes(state_dict)
+    resnet_backbone = any(k.startswith("backbone.layer") for k in state_dict)
+    for key, value in state_dict.items():
         prefix, _, leaf = key.rpartition(".")
         if leaf == "num_batches_tracked":
             continue
         if leaf not in _TORCH_LEAF:
             raise KeyError(f"unmapped torch key: {key}")
-        path, kind = flax_path_for(prefix)
+        path, kind = flax_path_for(prefix, resnet_backbone)
         col, name = _TORCH_LEAF[leaf]
         if name is None:
             name = "scale" if kind == "bn" else "kernel"

@@ -9,7 +9,7 @@ from __future__ import annotations
 from human_pose_tpu.metrics.cocoeval import COCOKeypointsEval as JaxCOCOKeypointsEval
 from human_pose_tpu_torch.metrics import COCOKeypointsEval
 from tests.test_torch_port_inference import (  # noqa: F401  (fixtures)
-    assert_decisions_match, corpus, fixture_models, pipeline_results,
+    assert_decisions_match, corpus, fixture_models, light_jax_reference, pipeline_results,
 )
 
 

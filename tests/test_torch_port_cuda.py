@@ -16,6 +16,8 @@ intermediate value at a bf16 rounding boundary can round either way.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1335,3 +1337,123 @@ def test_export_program_round_trip_on_card(dev, dtype, tmp_path):
     again.load_state_dict({k: torch.from_numpy(v) for k, v in load_flax_npz(tmp_path / "w.npz").items()},
                           strict=True)
     assert all(torch.equal(a, b) for a, b in zip(again.state_dict().values(), net.state_dict().values()))
+
+
+# -- float32 repeatability on the card (the keypoints yaml's W32) ---------------
+
+def test_serving_w32_float32_repeat_bit_equal_with_deterministic_cudnn(dev):
+    """W32 from the keypoints yaml in float32 (seeded weights): one predict
+    of a 480x640 request repeated three times is bit-equal, payload and
+    forward maps, under cuDNN's deterministic algorithms with benchmark
+    off. The same repeats under the yaml's cuDNN settings (benchmark on,
+    deterministic off) and PyTorch's defaults are printed, not held: there
+    cuDNN may pick algorithms that sum in a different order each call."""
+    import chip_smoke
+    from human_pose_tpu_torch.configs import KeypointsConfig
+    from human_pose_tpu_torch.inference import BatchedKeypointsPredictor
+
+    cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(
+        chip_smoke.EVAL_YAML, ["--inference.ckpt_path=null", "--trainer.accelerator=gpu"]))
+    pred = BatchedKeypointsPredictor(cfg.create_inference_model())
+    raw = np.random.default_rng(3).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    readings = chip_smoke.repeat_readings(pred, pred.prepare(raw), chip_smoke.yaml_cudnn())
+    for what, r in readings.items():
+        print(what, {k: v for k, v in r.items() if k != "payload_gaps"},
+              [(g["people_differ"], g["max_xy"], g["max_score"]) for g in r["payload_gaps"]])
+    det = readings["deterministic"]
+    assert det["forward_bit_equal"] and det["payload_bit_equal"]
+
+
+# -- the model zoo (models/{resnet,simple_baseline,hourglass}.py, HRNetSPPE) ----
+
+def _zoo_net(name, device):
+    from human_pose_tpu_torch import models
+
+    make = {
+        "ae_hourglass": lambda: models.AEHourglassNet(17, 2, device=device),
+        "hourglass": lambda: models.HourglassNet(16, 2, device=device),
+        "simple_baseline": lambda: models.SimpleBaseline(17, "resnet50", device=device),
+        "hrnet_sppe": lambda: models.HRNetSPPE(17, 32, device=device),
+    }[name]
+    return make().eval()
+
+
+@pytest.mark.parametrize("name", ["ae_hourglass", "hourglass", "simple_baseline", "hrnet_sppe"])
+def test_zoo_forward_card_equals_cpu(dev, name):
+    """Each zoo net at full width, float32 (TF32 off), seeded with
+    ``init_flax_default_``: the card's forward of a 64x128 image within rel
+    1e-3 of the CPU's, every output float32."""
+    from human_pose_tpu_torch.models import init_flax_default_
+
+    net = init_flax_default_(_zoo_net(name, dev), torch.Generator().manual_seed(0))
+    cpu = _zoo_net(name, "cpu")
+    cpu.load_state_dict(net.state_dict())
+    x = torch.from_numpy(np.random.RandomState(2).randn(2, 3, 64, 128).astype(np.float32))
+    with torch.no_grad():
+        got, want = net(x.to(dev)), cpu(x)
+    flat = lambda o: [t for a in o for t in flat(a)] if isinstance(o, (list, tuple)) else [o]  # noqa: E731
+    for g, w in zip(flat(got), flat(want), strict=True):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert float((g.cpu() - w).abs().max() / w.abs().max().clamp(min=1e-3)) <= 1e-3
+
+
+def test_sppe_parse_card_equals_cpu(dev):
+    """The single-person argmax on the card == on the CPU, ties included
+    (the first row-major maximum)."""
+    from human_pose_tpu_torch.ops import sppe_parse
+
+    maps = torch.from_numpy(np.random.RandomState(5).rand(3, 17, 40, 30).astype(np.float32))
+    maps[0, 0] = 0.5
+    maps[1, 1, 7, :] = 2.0
+    maps[2, 2, 3, 4] = maps[2, 2, 1, 9] = 2.0
+    got = sppe_parse(maps.to(dev)).cpu()
+    assert torch.equal(got, sppe_parse(maps))
+    assert got[0, 0, 0, :2].tolist() == [0.0, 0.0] and got[1, 0, 1, :2].tolist() == [0.0, 7.0]
+    assert got[2, 0, 2, :2].tolist() == [9.0, 1.0]
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_sppe_inference_card_equals_cpu(dev, compact):
+    """``InferenceSPPEModel`` on SimpleBaseline-R18 (seeded): the card's
+    joints equal the CPU's on this seeded image, heatmaps within 1e-4 of
+    their scale; no decode kernel launched."""
+    from human_pose_tpu_torch.inference import InferenceSPPEModel
+    from human_pose_tpu_torch.models import SimpleBaseline, init_flax_default_
+
+    nets = {d: SimpleBaseline(17, "resnet18", device=d).eval() for d in (dev, "cpu")}
+    init_flax_default_(nets[dev], torch.Generator().manual_seed(1))
+    nets["cpu"].load_state_dict(nets[dev].state_dict())
+    raw = np.random.RandomState(6).randint(0, 256, (200, 150, 3)).astype(np.uint8)
+    before = (refine_argmax_batch.launches, match_by_tag_batched.launches)
+    got, want = [InferenceSPPEModel(nets[d], input_size=128, compact_inputs=compact, device=d)(raw)
+                 for d in (dev, "cpu")]
+    assert (refine_argmax_batch.launches, match_by_tag_batched.launches) == before
+    np.testing.assert_array_equal(got.kpts_coords, want.kpts_coords)
+    scale = np.abs(want.kpts_heatmaps).max()
+    assert np.abs(got.kpts_heatmaps - want.kpts_heatmaps).max() <= 1e-4 * scale
+
+
+def test_ae_hourglass_inference_launches_each_kernel_once(dev):
+    """``InferenceKeypointsModel`` on a one-stage AE hourglass (seeded) at
+    128 with flip: one launch of the dense refine and of the grouping a
+    call, and the card's decode equal to the CPU's plain decode of the
+    card's own aggregated maps (joints within 1e-3, as chip_smoke's phase
+    6)."""
+    from human_pose_tpu_torch.inference import InferenceKeypointsModel
+    from human_pose_tpu_torch.models import AEHourglassNet, init_flax_default_
+
+    net = init_flax_default_(AEHourglassNet(17, 1, device=dev), torch.Generator().manual_seed(2)).eval()
+    kw = dict(det_thr=0.05, tag_thr=0.5, use_flip=True, input_size=128, max_num_people=10)
+    im, im_cpu = (InferenceKeypointsModel(n, **kw, device=d)
+                  for n, d in ((net, dev), (copy.deepcopy(net).cpu(), "cpu")))
+    x, _, _ = im.prepare_input(np.random.RandomState(7).randint(0, 256, (150, 200, 3)).astype(np.uint8))
+    hw = x.shape[1:3]
+    before = (refine_argmax_batch.launches, match_by_tag_batched.launches)
+    avg, tags_list = im.forward_scale(im.to_device(x), hw)
+    joints, scores, valid, _ = im.decode_masked(avg, tags_list, hw, 1.0)
+    torch.cuda.synchronize()
+    assert (refine_argmax_batch.launches - before[0], match_by_tag_batched.launches - before[1]) == (1, 1)
+    cj, cs, cv, _ = im_cpu.decode_masked(avg.cpu(), [t.cpu() for t in tags_list], hw, 1.0)
+    assert torch.equal(valid.cpu(), cv) and int(cv.sum()) >= 1
+    # the kernels equal their plain versions; the rest of the decode as phase 6 holds it
+    assert float((joints.cpu()[cv][..., :3] - cj[cv][..., :3]).abs().max()) <= 1e-3

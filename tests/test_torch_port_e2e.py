@@ -23,6 +23,7 @@ from human_pose_tpu_torch.models import HigherHRNet
 from human_pose_tpu_torch.ops import decode_batch, prep_images
 from human_pose_tpu_torch.utils import load_flax_npz
 from tests.ap_fixture import load_trained_variables
+from tests.jax_reference import light_jax_reference  # noqa: F401  (module fixture)
 
 SIZE = 64
 

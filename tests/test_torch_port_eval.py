@@ -349,8 +349,10 @@ def test_config_refusals():
         with pytest.raises(NotImplementedError, match=f"module {module}"):
             call()
     for arch in ("Hourglass", "SimpleBaseline", "HRNet"):
+        # the model zoo is built (tests/test_torch_port_zoo.py); on the
+        # yaml's card accelerator it refuses a host without a card
         other = KeypointsConfig.from_dict({"setup": {"architecture": arch}})
-        with pytest.raises(NotImplementedError, match="module 15"):
+        with pytest.raises(RuntimeError, match="is_available"):
             other.create_inference_model()
     with pytest.raises(ValueError, match="unknown"):
         KeypointsConfig.from_dict({"setup": {"architecture": "ViT"}}).create_net()

@@ -5,7 +5,8 @@ reference-layout ``.pt`` that both packages' loaders read), flip on, input
 64, through each package's ``bin.eval_keypoints`` on one yaml.
 
 JAX's CLI runs once, batched at batch size 2 (its
-``evaluate_dataset_batched``). Against it: the port's batched evaluator per
+``evaluate_dataset_batched``), its checkpoint template's shapes from
+``jax.eval_shape`` (``_variables_from_shapes``). Against it: the port's batched evaluator per
 image within tests/test_batched_eval.py's tolerances (coordinates < 0.5 px,
 scores within 1e-3, equal person counts), and the port's CLI, serial and
 batched: the same output files, detections with the same keys, the same
@@ -19,11 +20,15 @@ import json
 import sys
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 import yaml
 
 from human_pose_tpu.bin.eval_keypoints import main as jax_main
+from human_pose_tpu.inference import models as jax_inference_models
 from human_pose_tpu.metrics.cocoeval import COCOKeypointsEval as JaxCOCOKeypointsEval
 from human_pose_tpu_torch.bin.eval_keypoints import main
 from human_pose_tpu_torch.configs import KeypointsConfig
@@ -32,20 +37,15 @@ from human_pose_tpu_torch.inference import evaluate_dataset_batched, load_infere
 from human_pose_tpu_torch.metrics import COCOKeypointsEval
 from human_pose_tpu_torch.models import HigherHRNet
 from tests.ap_fixture import K, WEIGHTS_PATH, build_corpus
+from human_pose_tpu.utils.torch_interop import (
+    is_torch_checkpoint, load_torch_state_dict, variables_from_torch,
+)
+from tests.jax_reference import light_jax_reference  # noqa: F401  (module fixture)
 from tests.test_batched_eval import assert_detections_match
 
 OUT_FILES = ["coco_output.txt", "config.yaml", "val2017_results.json"]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's many small CPU ops while this
-    module runs: the suite runs several workers on a few cores, where
-    torch's default thread pool spins against them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run_cli(run, work: Path, argv: list) -> Path:
@@ -66,8 +66,21 @@ def _jax_cli(argv):
         sys.argv = saved
 
 
+def _variables_from_shapes(model, ckpt_path, input_shape=(64, 64, 3)):
+    """The JAX package's ``load_variables_from_ckpt`` for a reference
+    ``.pt``, its template's shapes from ``jax.eval_shape`` rather than from
+    an eager ``model.init`` (~30 s of per-op compiles on the CPU), whose
+    values the checkpoint replaces leaf for leaf."""
+    assert is_torch_checkpoint(ckpt_path)
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, *input_shape), getattr(model, "dtype", jnp.float32)),
+        train=False))
+    template = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), dict(shapes))
+    return variables_from_torch(load_torch_state_dict(ckpt_path), template)
+
+
 @pytest.fixture(scope="module")
-def env(tmp_path_factory):
+def env(tmp_path_factory, light_jax_reference):  # noqa: F811
     tmp = tmp_path_factory.mktemp("eval_jax")
     root = tmp / "coco"
     gt = build_corpus(root)
@@ -87,7 +100,9 @@ net:
 inference: {{input_size: 64, use_flip: true, det_thr: 0.25, tag_thr: 0.4, ckpt_path: {ckpt}}}
 """)
     argv = [f"--config={cfg}"]
-    jax_out = _run_cli(_jax_cli, tmp / "jax", argv + ["--batch_size=2"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_inference_models, "load_variables_from_ckpt", _variables_from_shapes)
+        jax_out = _run_cli(_jax_cli, tmp / "jax", argv + ["--batch_size=2"])
     jax_dets = json.loads((jax_out / "val2017_results.json").read_text())
     return {"tmp": tmp, "root": root, "gt": gt, "cfg": cfg, "argv": argv, "jax_out": jax_out,
             "jax_dets": jax_dets, "jax_ap": JaxCOCOKeypointsEval(gt, jax_dets).evaluate()[0]}

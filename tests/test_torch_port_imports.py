@@ -42,8 +42,9 @@ def test_package_imports_with_jax_blocked():
     """Every module of the port (and chip_smoke) imports with JAX, flax and
     the JAX package made unimportable, and without CUDA: the subpackages of
     the inference and eval paths, the CLIs and training (its engine and
-    CLI) too, the classification CLIs, config and dataset, and serving and
-    export (their CLIs, the flag parser, model info)."""
+    CLI) too, the classification CLIs, config and dataset, serving and
+    export (their CLIs, the flag parser, model info), and the model zoo
+    (its nets, the SPPE decode, MPII and PCKh)."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'human_pose_tpu'): sys.modules[m] = None\n"
@@ -62,6 +63,10 @@ def test_package_imports_with_jax_blocked():
         "import human_pose_tpu_torch.bin.bench_serve, human_pose_tpu_torch.bin.export\n"
         "import human_pose_tpu_torch.utils.export, human_pose_tpu_torch.utils.model_info\n"
         "import human_pose_tpu_torch.utils.argv\n"
+        "import human_pose_tpu_torch.models.helpers, human_pose_tpu_torch.models.resnet\n"
+        "import human_pose_tpu_torch.models.simple_baseline, human_pose_tpu_torch.models.hourglass\n"
+        "import human_pose_tpu_torch.ops.sppe, human_pose_tpu_torch.data.mpii\n"
+        "import human_pose_tpu_torch.metrics.pckh\n"
         "print('ok')\n"
     )
     res = _run(code, ROOT)

@@ -36,6 +36,7 @@ from human_pose_tpu_torch.utils import load_flax_npz
 from tests.ap_fixture import (
     IN_SIZE, K, P_CAP, WEIGHTS_PATH, build_corpus, load_trained_variables, train_batch_and_views,
 )
+from tests.jax_reference import light_jax_reference  # noqa: F401  (module fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 # the AP check's eval point (tests/test_ap_parity.py); every configuration

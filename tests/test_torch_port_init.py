@@ -22,6 +22,7 @@ from flax import linen as fnn
 
 from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
 from human_pose_tpu_torch.models.init import TRUNCATED_NORMAL_STD
+from tests.jax_reference import light_jax_reference  # noqa: F401  (module fixture)
 
 
 @pytest.fixture(scope="module")
