@@ -13,6 +13,7 @@
     python3 chip_smoke.py --classification-only  # ImageNet classification alone, see the end
     python3 chip_smoke.py --serve-only         # serving and export alone, see the end
     python3 chip_smoke.py --zoo-only           # the model zoo alone, see the end
+    python3 chip_smoke.py --dp-train-only      # zoo and data-parallel training alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -157,6 +158,24 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    launched, joints card == CPU parse, ms an image float32 and bfloat16; a
    torchvision-layout resnet50 state dict into SimpleBaseline's backbone on
    the card, strictly
+15. zoo and data-parallel training (``dp_train_phase``): one float32 Adam
+   step of the one-stage full-width AE hourglass (batch 2 at 128^2) on the
+   card and on the CPU, each held against float64 on its own ReLU
+   decisions; the AE hourglass (17 joints, 2 stages, 6,795,396 parameters)
+   from the keypoints yaml with ``architecture: Hourglass`` and every target
+   at 1/4, at the yaml's point (Adam 1e-3, batch 36 or the largest that
+   fits, 512^2, 30 persons) in float32 and bfloat16: ms a step, img/s, peak
+   memory, busy and idle share, no kernel launched; its bfloat16 step at
+   batch 16 through an NCCL group of one in this process against the plain
+   step (what the data-parallel step adds); a synthesized COCO (16
+   train, 8 val images) through ``bin.train_keypoints.main`` with that
+   architecture: FINISHED, one launch of the dense refine and of the
+   grouping in the validation's ``make_results``, each equal to its plain
+   version on those inputs, their times and bounds; the same CLI side by
+   side in two processes, one with torchrun's environment for one rank (an
+   NCCL group of one, the data-parallel mesh and its collectives) and one
+   without: metrics, weights and Adam state of last.pt bit for bit equal
+   (cuDNN deterministic), the NCCL version and the group's backend
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
@@ -200,8 +219,9 @@ last (no ``ok`` line). ``--eval-only`` does the same for phase 8,
 grouping for its validation), ``--train-engine-only`` for phase 11 (the
 same two kernels; without phase 10 in the process it measures phase 10's
 steady step itself), ``--classification-only`` for phase 12 (which
-builds no kernel), ``--serve-only`` for phase 13 and ``--zoo-only`` for
-phase 14 (each the dense refine and the grouping).
+builds no kernel), ``--serve-only`` for phase 13, ``--zoo-only`` for
+phase 14 and ``--dp-train-only`` for phase 15 (each the dense refine and the
+grouping).
 """
 
 from __future__ import annotations
@@ -1684,21 +1704,22 @@ TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SIZE = 4, 128
 TRAIN_STEPS = 5
 
 
-def train_batch(n: int, size: int, persons: int, gen, device) -> dict:
+def train_batch(n: int, size: int, persons: int, gen, device, strides: tuple = (4, 2)) -> dict:
     """A seeded keypoints batch made on ``device`` (``gen`` is a generator
-    there): uint8 images, heatmaps at 1/4 and 1/2 resolution, masks of ones,
+    there): uint8 images, a heatmap and a mask of ones at each of
+    ``strides`` (HigherHRNet's 1/4 and 1/2; the AE hourglass's (4, 4)),
     joints of ``persons`` x K on the 1/4 grid, about half visible (as
     tests/test_train_steps.py's ``make_kpts_batch``)."""
     import torch
 
     kw = {"generator": gen, "device": device}
-    h4, h2 = size // 4, size // 2
+    h4 = size // 4
     joints = torch.stack([torch.randint(0, h4, (n, persons, K), **kw),
                           torch.randint(0, h4, (n, persons, K), **kw),
                           (torch.rand((n, persons, K), **kw) > 0.5).long()], -1).to(torch.int32)
     return {"images": torch.randint(0, 256, (n, 3, size, size), dtype=torch.uint8, **kw),
-            "heatmaps": [torch.rand((n, K, h4, h4), **kw), torch.rand((n, K, h2, h2), **kw)],
-            "masks": [torch.ones((n, h4, h4), device=device), torch.ones((n, h2, h2), device=device)],
+            "heatmaps": [torch.rand((n, K, size // s, size // s), **kw) for s in strides],
+            "masks": [torch.ones((n, size // s, size // s), device=device) for s in strides],
             "joints": joints}
 
 
@@ -1757,7 +1778,7 @@ def step_card_vs_cpu(dev, model, step, ref_loss, cudnn: bool = True,
     Returns ``metrics`` and ``after`` (the state dicts after the step) as
     (CPU, card), ``start`` (the state dict before), ``grads``: {"cpu",
     "card", "ref", and with ``decisions`` "ref_cpu", "ref_card"} of name ->
-    float64 CPU tensor; the BatchNorm running statistics' largest card-CPU
+    float64 CPU tensor (the parameters that have a gradient); the BatchNorm running statistics' largest card-CPU
     gap of each tensor's largest value and how many moved; with
     ``decisions`` ``relu``: for each device the decisions that differ from
     float64's (count, and the largest |float64 input| among them over that
@@ -1786,12 +1807,16 @@ def step_card_vs_cpu(dev, model, step, ref_loss, cudnn: bool = True,
         with mode:
             loss = ref_loss(net)
         loss.backward()
-        return {name: p.grad for name, p in net.named_parameters()}, getattr(mode, "inputs", None)
+        return ({name: p.grad for name, p in net.named_parameters() if p.grad is not None},
+                getattr(mode, "inputs", None))
 
     (net_c, m_c, in_c), (net_g, m_g, in_g) = one_step(cpu), one_step(dev)
     ref, in_ref = reference()
-    grads = {"cpu": {n: p.grad.double() for n, p in net_c.named_parameters()},
-             "card": {n: p.grad.cpu().double() for n, p in net_g.named_parameters()}, "ref": ref}
+    # a parameter whose output the loss never reads (the AE hourglass's
+    # last remap convs) has no gradient on any device
+    grads = {"cpu": {n: p.grad.double() for n, p in net_c.named_parameters() if n in ref},
+             "card": {n: p.grad.cpu().double() for n, p in net_g.named_parameters() if n in ref},
+             "ref": ref}
     sd_c = net_c.state_dict()
     sd_g = {k: v.cpu() for k, v in net_g.state_dict().items()}
     stats = {k: float((sd_g[k] - sd_c[k]).abs().max() / sd_c[k].abs().max().clamp(min=1e-30))
@@ -4017,6 +4042,590 @@ def zoo_only(dev, smi: str) -> int:
     return 0
 
 
+# phase 15, zoo and data-parallel training: the AE hourglass from the
+# keypoints yaml with architecture Hourglass and every target at 1/4 (its
+# two stages' resolution), at the yaml's point (Adam 1e-3, batch 36, 512^2,
+# 30 persons); its one-stage net card vs CPU; the training CLI on a
+# synthesized corpus; the CLI at world size 1 through NCCL against the
+# CLI without a process group
+DP_AE_ARGV = ("--setup.architecture=Hourglass", "--dataloader.train_ds.hm_resolutions=[0.25,0.25]",
+              "--dataloader.val_ds.hm_resolutions=[0.25,0.25]", "--transform.hm_resolutions=[0.25,0.25]")
+AE_PARAMS = 6_795_396  # AEHourglassNet(17 joints, 2 stages)
+AE_REDUCED_STAGES, AE_REDUCED_BATCH, AE_REDUCED_SIZE = 1, 2, 128
+# the CLI runs: two training steps of 8 and one validation batch an epoch
+DP_CLI_N_TRAIN, DP_CLI_N_VAL, DP_CLI_BATCH = 16, 8, 8
+DP_CLI_ARGV = (*DP_AE_ARGV, f"--dataloader.batch_size={DP_CLI_BATCH}", "--trainer.max_epochs=1",
+               "--setup.pretrained_ckpt_path=null")
+DP_CLI_TIMEOUT_S = 300
+# the CLI at world size 1 and without a group, bit for bit: cuDNN's
+# deterministic algorithms, no autotuning (ROADMAP "Repeatability")
+DP_DETERMINISTIC = ("--cudnn.deterministic=true", "--cudnn.benchmark=false")
+# the mesh's cost at world size 1: steps of this batch, each way, in turns
+AE_MESH_BATCH, AE_MESH_STEPS = 16, 3
+# per-process BatchNorm statistics against BatchNorm2d: steps a turn
+LOCAL_BN_STEPS = 2
+
+
+def ae_hourglass_step_card_vs_cpu(dev) -> dict:
+    """One float32 Adam step (lr 1e-3; TF32 and cuDNN off, as phases 10 and
+    12 hold their steps) of the one-stage full-width AE hourglass
+    (``AE_REDUCED_BATCH`` at ``AE_REDUCED_SIZE``^2, one heatmap target at
+    1/4) on the card and on the CPU from the same ``init_keypoints_weights_``
+    weights and a seeded batch (``step_card_vs_cpu`` with ReLU decisions).
+    Its 55 BatchNorms in series amplify rounding (with weights drawn at
+    std 1/sqrt(fan_in) an x86 CPU's float32 gradients missed float64 by up
+    to 4.4e-3 of a tensor, ``tests/test_torch_port_zoo_train.py``; with this
+    init by 7.6e-5, and 4.5e-5 over all). Held: every loss term within
+    rel 1e-4 of the CPU's; each device's decisions that differ from
+    float64's at an input within 1e-4 of that ReLU input's largest value;
+    every gradient of the card and of the CPU within ||g - ref|| / ||ref||
+    1e-3 of the float64 gradient with its own decisions, and 1e-3 over all
+    parameters (a tensor whose float64 gradient is below 1e-6 of the whole
+    gradient's norm, zero in exact arithmetic, below 1e-5 of it); each BN running statistic within 1e-3 of its tensor's
+    largest value; the parameters after the step within 2e-6 + 1e-6 of the
+    CPU's where both gradients reach 1e-5 with one sign (Adam's first
+    update lr * g / (|g| + 1e-8) then moves by at most lr * 1e-8 / 1e-5 on
+    each device) and within 2 * lr + 1e-6 elsewhere. Raises on a miss;
+    returns the errors."""
+    import torch
+
+    from human_pose_tpu_torch.models import AEHourglassNet, init_keypoints_weights_
+    from human_pose_tpu_torch.ops import prep_images
+    from human_pose_tpu_torch.train import (
+        TrainState, ae_keypoints_loss, create_optimizer, keypoints_train_step,
+    )
+
+    lr, cpu = 1e-3, torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 15)
+    model = init_keypoints_weights_(AEHourglassNet(K, AE_REDUCED_STAGES, device=cpu), gen)
+    batch = train_batch(AE_REDUCED_BATCH, AE_REDUCED_SIZE, 30, gen, cpu, strides=(4,) * AE_REDUCED_STAGES)
+
+    def step(net, where):
+        state = TrainState.create(net, create_optimizer(net.parameters(), "Adam", lr), device=where)
+        return keypoints_train_step(state, batch, lr)[1]
+
+    def ref_loss(net):
+        hms, tags = net(prep_images(batch["images"]).double())
+        return ae_keypoints_loss(hms, tags, batch["heatmaps"], batch["masks"], batch["joints"])[0]
+
+    run = step_card_vs_cpu(dev, model, step, ref_loss, cudnn=False, decisions=True)
+    (m_c, m_g), (sd_c, sd_g), g, relu = run["metrics"], run["after"], run["grads"], run["relu"]
+
+    def flat(grads):
+        return torch.cat([grads[n].flatten() for n in g["ref"]])
+
+    # a BatchNorm bias whose output a later train-mode BatchNorm centres
+    # again has a zero gradient in exact arithmetic: such tensors (below
+    # 1e-6 of the whole gradient's norm) are held against that norm
+    total = float(flat(g["ref"]).norm())
+    zero = [n for n, r in g["ref"].items() if float(r.norm()) < 1e-6 * total]
+    held = [n for n in g["ref"] if n not in zero]
+    grad_rel = {n: rel_gap(g["card"][n], g["ref_card"][n]) for n in held}
+    cpu_rel = {n: rel_gap(g["cpu"][n], g["ref_cpu"][n]) for n in held}
+    zero_rel = max((float(g[who][n].norm()) / total for n in zero for who in ("card", "cpu")), default=0.0)
+    p_sure = p_any = 0.0
+    for name in g["ref"]:
+        gc, gg = g["cpu"][name], g["card"][name]
+        diff = (sd_g[name] - sd_c[name]).abs()
+        sure = (gc.abs() >= 1e-5) & (gg.abs() >= 1e-5) & (torch.sign(gc) == torch.sign(gg))
+        p_sure = max(p_sure, float(diff[sure].max()) if bool(sure.any()) else 0.0)
+        p_any = max(p_any, float(diff.max()))
+    out = {"batch": AE_REDUCED_BATCH, "size": AE_REDUCED_SIZE, "stages": AE_REDUCED_STAGES,
+           "loss_rel": max(abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c), "relu": relu,
+           "grad_rel_max": max(grad_rel.values()), "grad_rel_worst": max(grad_rel, key=grad_rel.get),
+           "cpu_grad_rel_max": max(cpu_rel.values()), "cpu_grad_rel_worst": max(cpu_rel, key=cpu_rel.get),
+           "grad_rel_global": rel_gap(flat(g["card"]), flat(g["ref_card"])),
+           "cpu_grad_rel_global": rel_gap(flat(g["cpu"]), flat(g["ref_cpu"])),
+           "grad_rel_vs_cpu_max": max(rel_gap(g["card"][n], g["cpu"][n]) for n in g["ref"]),
+           "no_grad_params": sum(1 for n, _ in model.named_parameters() if n not in g["ref"]),
+           "zero_grad_tensors": len(zero), "zero_grad_rel_max": zero_rel,
+           "bn_stats_rel_max": run["bn_stats_rel_max"], "bn_stats_moved": run["bn_stats_moved"],
+           "params_sure_abs_max": p_sure, "params_abs_max": p_any, "metrics_card": m_g}
+    log(f"AE hourglass step card vs CPU ({AE_REDUCED_BATCH} x {AE_REDUCED_SIZE}^2, "
+        f"{AE_REDUCED_STAGES} stage, full width, Adam, float32, TF32 and cuDNN off): "
+        + ", ".join(f"{k} {v}" for k, v in out.items()))
+    decisions_ok = all(relu[who]["differ_input_rel_max"] <= 1e-4 for who in ("cpu", "card"))
+    if not (out["loss_rel"] <= 1e-4 and decisions_ok and out["grad_rel_max"] <= 1e-3
+            and out["cpu_grad_rel_max"] <= 1e-3 and out["grad_rel_global"] <= 1e-3
+            and out["cpu_grad_rel_global"] <= 1e-3 and zero_rel <= 1e-5 and out["bn_stats_rel_max"] <= 1e-3
+            and run["bn_stats_all_moved"] and p_sure <= 2e-6 + 1e-6 and p_any <= 2 * lr + 1e-6):
+        raise AssertionError(f"AE hourglass step card vs CPU: {out}")
+    return out
+
+
+def ae_hourglass_steps(dev, smi: str) -> dict:
+    """The AE hourglass (17 joints, 2 stages, full width) from ``TRAIN_YAML``
+    with ``DP_AE_ARGV`` (``create_net``, ``init_keypoints_weights_``, the
+    yaml's Adam and batch) on a batch made on the card with both heatmap
+    targets at 1/4, in float32 (TF32 off) and in bfloat16 autocast
+    (``timed_steps``: ms a step, img/s, peak memory, busy and idle share,
+    losses finite). A batch that does not fit on the card is halved until
+    it does, and the cut is recorded. Returns the record."""
+    import torch
+
+    from human_pose_tpu_torch.configs import KeypointsConfig
+    from human_pose_tpu_torch.models import AEHourglassNet, init_keypoints_weights_
+    from human_pose_tpu_torch.train import TrainState, create_optimizer, keypoints_train_step
+
+    cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(
+        str(Path(__file__).resolve().parent / TRAIN_YAML), list(DP_AE_ARGV)))
+    cfg.check_trainable()
+    opt_cfg = cfg.module.optimizers["optim"]
+    opt_params = dict(opt_cfg["params"])
+    base_lr = opt_params.pop("lr")
+    n, size = cfg.dataloader.batch_size, cfg.dataloader.train_ds.out_size
+    persons = cfg.dataloader.train_ds.max_num_people
+    model = init_keypoints_weights_(cfg.create_net(device=dev), torch.Generator().manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    if not isinstance(model, AEHourglassNet) or n_params != AE_PARAMS:
+        raise AssertionError(f"AE hourglass from {TRAIN_YAML}: {type(model).__name__}, {n_params} parameters")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {"params": n_params, "yaml_batch": n, "size": size, "persons": persons,
+           "optimizer": opt_cfg["name"], "lr": base_lr, "hm_resolutions": cfg.dataloader.train_ds.hm_resolutions}
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic, cudnn.enabled)
+    cfg.apply_cudnn()
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            b, last = n, {}
+            while True:
+                model.load_state_dict(init)
+                state = TrainState.create(
+                    model, create_optimizer(model.parameters(), opt_cfg["name"], base_lr, **opt_params),
+                    dtype=dtype, device=dev)
+                batch = train_batch(b, size, persons, torch.Generator(device=dev).manual_seed(SEED), dev,
+                                    strides=(4, 4))
+
+                def step():
+                    last.update(keypoints_train_step(state, batch, base_lr)[1])
+                    torch.cuda.synchronize()
+                    return last
+
+                try:
+                    out[name] = timed_steps(step, b, f"AE hourglass train {name} bs{b}", smi)
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    del state, batch, step
+                    torch.cuda.empty_cache()
+                    log(f"AE hourglass train {name}: batch {b} does not fit; halving it")
+                    b //= 2
+            out[name].update(batch=b, steps=state.step, metrics=sorted(last))
+            del state, batch
+            torch.cuda.empty_cache()
+    finally:
+        cudnn.benchmark, cudnn.deterministic, cudnn.enabled = saved
+    if any(set(out[d]["metrics"]) != {"hm_0", "hm_1", "push", "pull", "loss"}
+           for d in ("float32", "bfloat16")):
+        raise AssertionError(f"AE hourglass train metrics {out['float32']['metrics']}")
+    return out
+
+
+@contextlib.contextmanager
+def process_group_of_one(device_type: str = "cuda"):
+    """A ``torch.distributed`` group of this process alone, joined as
+    torchrun's one rank (``setup_distributed`` from ``RANK=0 WORLD_SIZE=1
+    LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=<free>``: NCCL on the
+    card); yields ``make_mesh()``. The group is destroyed and the
+    environment restored after."""
+    import socket
+
+    from human_pose_tpu_torch.parallel import finalize_distributed, make_mesh, setup_distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        setup_distributed(device_type)
+        yield make_mesh()
+    finally:
+        finalize_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mesh_step_cost(dev, smi: str) -> dict:
+    """What the data-parallel step adds at world size 1: the AE hourglass
+    from ``TRAIN_YAML`` with ``DP_AE_ARGV`` in bfloat16 on a card batch
+    (batch ``AE_MESH_BATCH``, 512^2) stepped without a mesh and through an
+    NCCL group of one (gradients, BN statistics and metrics all-reduced),
+    in turns plain, mesh, mesh, plain, ``AE_MESH_STEPS`` steps each by host
+    wall to a sync; the medians and their difference. Returns the record."""
+    import torch
+
+    from human_pose_tpu_torch.configs import KeypointsConfig
+    from human_pose_tpu_torch.models import init_keypoints_weights_
+    from human_pose_tpu_torch.train import TrainState, create_optimizer, keypoints_train_step
+
+    cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(
+        str(Path(__file__).resolve().parent / TRAIN_YAML), list(DP_AE_ARGV)))
+    model = init_keypoints_weights_(cfg.create_net(device=dev), torch.Generator().manual_seed(SEED))
+    size = cfg.dataloader.train_ds.out_size
+    batch = train_batch(AE_MESH_BATCH, size, cfg.dataloader.train_ds.max_num_people,
+                        torch.Generator(device=dev).manual_seed(SEED), dev, strides=(4, 4))
+    times = {"plain": [], "mesh": []}
+    with process_group_of_one() as mesh:
+        states = {name: TrainState.create(model, create_optimizer(model.parameters(), "Adam", 1e-3),
+                                          dtype=torch.bfloat16, device=dev, mesh=m)
+                  for name, m in (("plain", None), ("mesh", mesh))}
+
+        def step(name):
+            keypoints_train_step(states[name], batch, 1e-3)
+            torch.cuda.synchronize()
+
+        for name in ("plain", "mesh"):
+            step(name)  # cuDNN's autotuning, NCCL's first call
+        for name in ("plain", "mesh", "mesh", "plain"):
+            times[name] += [host_ms(lambda: step(name)) for _ in range(AE_MESH_STEPS)]
+    rec = {"batch": AE_MESH_BATCH, "size": size, "dtype": "bfloat16", "world_size": mesh.world_size,
+           "params": sum(p.numel() for p in model.parameters()),
+           **{f"{k}_ms": float(np.median(v)) for k, v in times.items()},
+           **{f"{k}_ms_all": v for k, v in times.items()}}
+    rec["mesh_cost_ms"] = rec["mesh_ms"] - rec["plain_ms"]
+    log(f"the data-parallel step at world size 1 (AE hourglass, bf16, bs{AE_MESH_BATCH} {size}^2): "
+        f"{rec['plain_ms']:.1f} ms a step without a mesh, {rec['mesh_ms']:.1f} ms through an NCCL group "
+        f"of one (medians of {2 * AE_MESH_STEPS} in turns): {rec['mesh_cost_ms']:+.1f} ms  [{smi}]")
+    return rec
+
+
+def local_bn_cost(dev, smi: str) -> dict:
+    """What per-process BatchNorm statistics cost on one card: the AE
+    hourglass from ``TRAIN_YAML`` with ``DP_AE_ARGV`` at the yaml's point
+    (its batch at 512^2, cuDNN as the yaml sets it) with ``BatchNorm2d``
+    and converted as one process of two under per-device statistics
+    (``convert_batch_norm(net, 2, 2)``: ``LocalBatchNorm(1)``, JAX's two-pass
+    moments; the steps without a mesh), in float32 and in bfloat16, in
+    turns plain, local, local, plain, ``LOCAL_BN_STEPS`` steps each by host
+    wall to a sync; the medians and their difference. Returns the record."""
+    import copy
+
+    import torch
+
+    from human_pose_tpu_torch.configs import KeypointsConfig
+    from human_pose_tpu_torch.models import init_keypoints_weights_
+    from human_pose_tpu_torch.models.norm import convert_batch_norm
+    from human_pose_tpu_torch.parallel import LocalBatchNorm
+    from human_pose_tpu_torch.train import TrainState, create_optimizer, keypoints_train_step
+
+    cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(
+        str(Path(__file__).resolve().parent / TRAIN_YAML), list(DP_AE_ARGV)))
+    plain = init_keypoints_weights_(cfg.create_net(device=dev), torch.Generator().manual_seed(SEED))
+    models = {"plain": plain, "local": convert_batch_norm(copy.deepcopy(plain), 2, 2)}
+    n_local = sum(type(m) is LocalBatchNorm and m.num_groups == 1 for m in models["local"].modules())
+    n, size = cfg.dataloader.batch_size, cfg.dataloader.train_ds.out_size
+    batch = train_batch(n, size, cfg.dataloader.train_ds.max_num_people,
+                        torch.Generator(device=dev).manual_seed(SEED), dev, strides=(4, 4))
+    rec = {"batch": n, "size": size, "local_batch_norms": n_local}
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic, cudnn.enabled)
+    cfg.apply_cudnn()
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            states = {k: TrainState.create(m, create_optimizer(m.parameters(), "Adam", 1e-3), dtype=dtype,
+                                           device=dev) for k, m in models.items()}
+            times = {k: [] for k in states}
+
+            def step(name):
+                keypoints_train_step(states[name], batch, 1e-3)
+                torch.cuda.synchronize()
+
+            for name in states:
+                step(name)  # cuDNN's autotuning
+            for name in ("plain", "local", "local", "plain"):
+                times[name] += [host_ms(lambda: step(name)) for _ in range(LOCAL_BN_STEPS)]
+            d = str(dtype).split(".")[-1]
+            rec[d] = {**{f"{k}_ms": float(np.median(v)) for k, v in times.items()},
+                      **{f"{k}_ms_all": v for k, v in times.items()}}
+            rec[d]["local_cost_ms"] = rec[d]["local_ms"] - rec[d]["plain_ms"]
+            del states
+            torch.cuda.empty_cache()
+    finally:
+        cudnn.benchmark, cudnn.deterministic, cudnn.enabled = saved
+    if n_local != sum(isinstance(m, torch.nn.BatchNorm2d) for m in plain.modules()):
+        raise AssertionError(f"convert_batch_norm(net, 2, 2): {n_local} LocalBatchNorm(1)")
+    log(f"per-process BatchNorm statistics (AE hourglass bs{n} {size}^2, {n_local} BatchNorms as "
+        f"LocalBatchNorm(1), medians of {2 * LOCAL_BN_STEPS} in turns): float32 "
+        f"{rec['float32']['plain_ms']:.1f} ms a step with BatchNorm2d, {rec['float32']['local_ms']:.1f} "
+        f"local ({rec['float32']['local_cost_ms']:+.1f}); bfloat16 {rec['bfloat16']['plain_ms']:.1f}, "
+        f"{rec['bfloat16']['local_ms']:.1f} ({rec['bfloat16']['local_cost_ms']:+.1f})  [{smi}]")
+    return rec
+
+
+def _run_dir(workdir: Path) -> Path:
+    """The one run directory the training CLI made under ``workdir``."""
+    runs = [p.parent.parent for p in workdir.glob("results/**/checkpoints/last.pt")]
+    if len(runs) != 1:
+        raise AssertionError(f"{workdir}: {len(runs)} runs with a last.pt")
+    return runs[0]
+
+
+def ae_hourglass_cli(dev, counted, yaml_path: str, roots: list, workdir: Path) -> tuple:
+    """``bin.train_keypoints.main`` with ``architecture: Hourglass`` on the
+    synthesized corpus (``DP_CLI_ARGV``: one epoch of two steps and one
+    validation batch, the yaml's bfloat16): FINISHED, the AE hourglass's
+    parameter count and metrics, one launch of the dense refine and of the
+    grouping (the validation's ``make_results``, counters zeroed before the
+    run). Returns (the record, the trainer)."""
+    from human_pose_tpu_torch.bin import train_keypoints
+    from human_pose_tpu_torch.models import AEHourglassNet
+
+    counters = {k: w for k, w in kernel_counters().items() if k in ("match_by_tag", "refine_argmax")}
+    want = {"match_by_tag": 1, "refine_argmax": 1}
+    t0 = time.perf_counter()
+    with EngineProbe(workdir, counters) as probe:
+        tr, launches = counted(lambda: train_keypoints.main([f"--config={yaml_path}", *roots, *DP_CLI_ARGV]),
+                               "phase 15 (the AE hourglass through the training CLI)", want)
+    run_s = time.perf_counter() - t0
+    status = json.loads((workdir / tr.log_path / "tracker" / "run.json").read_text())["status"]
+    module = tr.module
+    n_params = sum(p.numel() for p in module.model.parameters())
+    losses = engine_losses(tr)
+    per_eval = [c for _, c in probe.evaluates]
+    if (status != "FINISHED" or not isinstance(module.model, AEHourglassNet) or n_params != AE_PARAMS
+            or module.device != dev or per_eval != [want] or tr.current_step != DP_CLI_N_TRAIN // DP_CLI_BATCH
+            or set(losses["steps"]) != {"hm_0", "hm_1", "push", "pull", "loss"}
+            or not all(np.isfinite(v) for k in losses["steps"].values() for v in k)):
+        raise AssertionError(f"AE hourglass CLI: status {status}, {type(module.model).__name__} "
+                             f"{n_params} on {module.device}, launches an evaluate {per_eval}, steps "
+                             f"{tr.current_step}, losses {losses['steps']}")
+    rec = {"seconds": run_s, "status": status, "steps": tr.current_step, "params": n_params,
+           "dtype": str(module.state.dtype).split(".")[-1], "launches": launches,
+           "launches_an_evaluate": per_eval, "loss_steps": losses["steps"]["loss"],
+           "val_loss": losses["epochs"]["loss"]["val"]}
+    log(f"AE hourglass CLI ({DP_CLI_N_TRAIN} train / {DP_CLI_N_VAL} val images, batch {DP_CLI_BATCH}, "
+        f"{rec['dtype']}): {run_s:.1f}s, FINISHED, loss a step {[round(v, 6) for v in rec['loss_steps']]}, "
+        f"one launch of each decode kernel in the validation's make_results")
+    return rec, tr
+
+
+def target_val_outputs(batch: dict, dev) -> tuple:
+    """The AE hourglass's validation outputs as a net that had learnt its
+    targets would give them on a host val batch: both 1/4 stages the
+    batch's 1/4 heatmap targets (NCHW on ``dev``), the tags person p's
+    value 2 (p + 1) in a 3x3 window about each of its visible joints (on the
+    1/4 grid), 0 elsewhere. Every visible joint's peak clears det 0.1."""
+    import torch
+
+    hm = torch.from_numpy(np.ascontiguousarray(np.asarray(batch["heatmaps"][0]).transpose(0, 3, 1, 2)))
+    n, k, h, w = hm.shape
+    joints = np.asarray(batch["joints"])
+    tags = np.zeros((n, k, h, w), np.float32)
+    for i, p, j in zip(*np.nonzero(joints[..., 2] > 0)):
+        x, y = int(joints[i, p, j, 0]), int(joints[i, p, j, 1])
+        tags[i, j, max(y - 1, 0):y + 2, max(x - 1, 0):x + 2] = 2.0 * (p + 1)
+    return [hm.to(dev)] * 2, torch.from_numpy(tags).to(dev)
+
+
+def ae_hourglass_val_kernels(tr, smi: str) -> dict:
+    """A val batch of the CLI run through ``make_results`` twice: on its
+    module's ``validation_step`` outputs (two steps from the init: few or
+    no candidates clear det 0.1) and on ``target_val_outputs`` (every
+    person of the batch's first images a candidate). On both, each kernel's
+    output on the inputs ``make_results`` gives it equals its plain
+    version's, at the val thresholds (det 0.1, tag 1.0); the targets must
+    give the grouping valid rows. The kernels' times (CUDA events), bounds
+    and plain times on the targets' inputs; the valid rows of both."""
+    import torch
+
+    from human_pose_tpu_torch.ops import cuda_decode, cuda_match
+
+    module = tr.module
+    batch = next(iter(tr.datamodule.val_dl))
+    _, outputs = module.validation_step(batch)
+    rec, fns = {}, {}
+    for name, outs in (("cli", outputs), ("targets", target_val_outputs(batch, module.device))):
+        fns[name] = fn = (lambda o: lambda: module.make_results(batch, o))(outs)
+        seen = record_kernel_inputs(fn)
+        hm, tg, prev, cnt = seen["refine_argmax"]
+        cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
+        refine_equal = torch.equal(cuda_decode.refine_argmax_batch(hm, tg, prev, cnt),
+                                   cuda_decode.refine_argmax_batch_plain(hm, tg, prev, cnt))
+        t1 = time.perf_counter()
+        plain = cuda_match.match_by_tag_batched_plain(cand, det_thr, tag_thr, order, persons)
+        torch.cuda.synchronize()
+        match_plain_ms = (time.perf_counter() - t1) * 1e3
+        match_equal = all(torch.equal(a, b) for a, b in
+                          zip(cuda_match.match_by_tag_batched(cand, det_thr, tag_thr, order, persons), plain))
+        valid = int((cand[..., 2] > det_thr).sum())
+        rec[f"{name}_valid_rows"] = valid
+        rec[f"{name}_active_persons"] = int(cnt.sum())
+        if not (refine_equal and match_equal and (det_thr, tag_thr) == (0.1, 1.0)) \
+                or (name == "targets" and valid == 0):
+            raise AssertionError(f"AE hourglass make_results on the {name}' outputs: refine == plain "
+                                 f"{refine_equal}, grouping == plain {match_equal}, thresholds {det_thr}, "
+                                 f"{tag_thr}, {valid} valid rows")
+    rec.update(thresholds=[det_thr, tag_thr], **path_kernel_times(fns["targets"]),
+               refine_plain_ms=cuda_ms(lambda: cuda_decode.refine_argmax_batch_plain(hm, tg, prev, cnt),
+                                       iters=2),
+               match_plain_ms=match_plain_ms, match_valid_rows=valid)
+    log(f"AE hourglass make_results: each kernel == plain on its inputs (det 0.1, tag 1.0) from the "
+        f"CLI's outputs ({rec['cli_valid_rows']} valid rows, {rec['cli_active_persons']} active persons) "
+        f"and from the batch's targets ({valid} valid rows); on the targets' refine "
+        f"{rec['refine_ms']:.4f} ms ({rec['refine_shape']}, {rec['refine_active_persons']} active persons, "
+        f"bound {rec['refine_bound_ms']:.4f}, plain {rec['refine_plain_ms']:.2f}), grouping "
+        f"{rec['match_ms']:.4f} ms ({rec['match_shape']}, bound {rec['match_bound_ms']:.4f}, plain "
+        f"{match_plain_ms:.0f})  [{smi}]")
+    return rec
+
+
+def start_world_one(yaml_path: str, roots: list, workdir: Path) -> dict:
+    """Start the training CLI (``DP_CLI_ARGV`` with cuDNN deterministic, no
+    autotuning) twice, side by side in processes of their own: "world1"
+    with torchrun's environment for one rank (``RANK=0 WORLD_SIZE=1
+    LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=<free>``: an NCCL group
+    of one, the mesh, every collective of the steps) and "single" without.
+    Returns the processes by name and their start time
+    (``world_one_record`` waits for them)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = str(Path(__file__).resolve().parent)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [here, os.environ.get("PYTHONPATH")]))}
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    runs = {"single": env, "world1": {**env, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                                      "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}}
+    argv = [sys.executable, "-m", "human_pose_tpu_torch.bin.train_keypoints", f"--config={yaml_path}",
+            *roots, *DP_CLI_ARGV, *DP_DETERMINISTIC]
+    procs, t0 = {}, time.perf_counter()
+    try:
+        for name, run_env in runs.items():
+            (workdir / name).mkdir(parents=True)
+            procs[name] = subprocess.Popen(argv, cwd=workdir / name, env=run_env, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+    except BaseException:
+        _stop(procs)
+        raise
+    return {"procs": procs, "t0": t0}
+
+
+def _stop(procs: dict) -> None:
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def world_one_record(started: dict, smi: str, workdir: Path) -> dict:
+    """Wait for ``start_world_one``'s processes (``DP_CLI_TIMEOUT_S``,
+    killed after). Held: both exit 0; the group's process reports NCCL and
+    the mesh, the other no group; every step's and the validation's metrics
+    and every tensor of last.pt's model and Adam state bit for bit equal. A
+    failure to build the group fails the phase; it never falls back to
+    gloo. Returns the record."""
+    import torch
+
+    procs = started["procs"]
+    try:
+        logs = {name: p.communicate(timeout=DP_CLI_TIMEOUT_S)[0] for name, p in procs.items()}
+    finally:
+        _stop(procs)
+    seconds = time.perf_counter() - started["t0"]
+    for name, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError(f"the training CLI ({name}) exited {p.returncode}:\n{logs[name][-3000:]}")
+    group_line = next((l for l in logs["world1"].splitlines() if "initialized torch.distributed" in l), "")
+    backend = "gloo" if "--trainer.accelerator=cpu" in DP_CLI_ARGV else "nccl"
+    if f"({backend})" not in group_line or "mesh={'data': 1}" not in logs["world1"] \
+            or "initialized torch.distributed" in logs["single"]:
+        raise AssertionError(f"world size 1: group line {group_line!r}; mesh logged "
+                             f"{'mesh=' in logs['world1']}")
+    ckpt = {name: torch.load(_run_dir(workdir / name) / "checkpoints" / "last.pt", map_location="cpu",
+                             weights_only=True) for name in procs}
+    model = {name: c["module"]["model"] for name, c in ckpt.items()}
+    opt = {name: c["module"]["optimizers"]["optim"]["state"] for name, c in ckpt.items()}
+    metrics_equal = ckpt["single"]["metrics"] == ckpt["world1"]["metrics"]
+    model_equal = model["single"].keys() == model["world1"].keys() and all(
+        torch.equal(v, model["world1"][k]) for k, v in model["single"].items())
+    opt_equal = opt["single"].keys() == opt["world1"].keys() and all(
+        torch.equal(t, opt["world1"][i][key]) for i, st in opt["single"].items()
+        for key, t in st.items() if torch.is_tensor(t))
+    rec = {"seconds": seconds, "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+           "group_line": group_line[group_line.index("initialized"):].replace("\x1b[0m", "").strip(),
+           "metrics_equal": metrics_equal,
+           "model_equal": model_equal, "optimizer_equal": opt_equal,
+           "loss_steps": [r["value"] for r in ckpt["world1"]["metrics"]["metrics"]["loss"]["train"]],
+           "model_tensors": len(model["world1"])}
+    log(f"world size 1 through NCCL vs one process, the AE hourglass CLI side by side ({seconds:.1f}s): "
+        f"NCCL {rec['nccl_version']}, '{rec['group_line']}'; metrics equal {metrics_equal}, last.pt model "
+        f"equal {model_equal} ({rec['model_tensors']} tensors), Adam state equal {opt_equal}  [{smi}]")
+    if not (metrics_equal and model_equal and opt_equal):
+        raise AssertionError(f"world size 1 vs one process: {rec}")
+    return rec
+
+
+def dp_train_phase(dev, counted, smi: str) -> dict:
+    """Phase 15: zoo and data-parallel training on the card: the reduced
+    AE hourglass card vs CPU (``ae_hourglass_step_card_vs_cpu``), the
+    full-width AE hourglass at the yaml's point (``ae_hourglass_steps``; no
+    kernel launched), its step through an NCCL group of one against the
+    plain step (``mesh_step_cost``), per-process BatchNorm statistics
+    against ``BatchNorm2d`` (``local_bn_cost``), a synthesized COCO
+    ``train2017`` (16 images) and ``val2017`` (8), the AE hourglass through
+    the training CLI (``ae_hourglass_cli``, its kernels on the inputs
+    ``make_results`` gives them from its outputs and from the val batch's
+    targets, ``ae_hourglass_val_kernels``) and, meanwhile, the CLI at world size 1
+    through NCCL beside one process without a group (``start_world_one``,
+    ``world_one_record``). Raises on any miss; returns the phase's
+    record."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 15)
+    yaml_path = str(Path(__file__).resolve().parent / TRAIN_YAML)
+    out = {"card": smi}
+    out["card_vs_cpu"] = ae_hourglass_step_card_vs_cpu(dev)
+    out["steps"], _ = counted(lambda: ae_hourglass_steps(dev, smi),
+                              "phase 15 (AE hourglass steps at the yaml's point)", {})
+    out["mesh_cost"], _ = counted(lambda: mesh_step_cost(dev, smi),
+                                  "phase 15 (the step through a group of one)", {})
+    out["local_bn_cost"], _ = counted(lambda: local_bn_cost(dev, smi),
+                                      "phase 15 (per-process BatchNorm statistics)", {})
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "coco"
+        out["corpus"] = {split: make_eval_corpus(root, rng, split, n, TRAIN_DATA_PERSONS, TRAIN_DATA_CROWD_EVERY)
+                         for split, n in (("train2017", DP_CLI_N_TRAIN), ("val2017", DP_CLI_N_VAL))}
+        roots = [f"--dataloader.train_ds.root={root}", f"--dataloader.val_ds.root={root}"]
+        (tmp / "cli").mkdir()
+        # the two CLI processes run while this process runs the CLI too;
+        # the kernels are timed after they have ended
+        started = start_world_one(yaml_path, roots, tmp / "dp")
+        try:
+            out["cli"], tr = ae_hourglass_cli(dev, counted, yaml_path, roots, tmp / "cli")
+        except BaseException:
+            _stop(started["procs"])
+            raise
+        out["world1"] = world_one_record(started, smi, tmp / "dp")
+        out["launches"] = out["cli"]["launches"]
+        out["cli"].update(ae_hourglass_val_kernels(tr, smi))
+        del tr
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 (zoo and data-parallel training): {out['seconds']:.1f}s")
+    return out
+
+
+def dp_train_only(dev, smi: str) -> int:
+    """Phase 15 alone: build the dense refine and the grouping (the
+    validation's decode), then the zoo and data-parallel training phase.
+    Prints the phase's record as one JSON object last."""
+    from human_pose_tpu_torch.ops import _build
+
+    log(f"build: per kernel {_build.build_kernels(('refine_argmax', 'match_by_tag'))}")
+    counted = make_counted(kernel_counters())
+    print(json.dumps({"dp_train": dp_train_phase(dev, counted, smi)}), flush=True)
+    return 0
+
+
 def refine_only(dev, rng, smi: str) -> int:
     """The short loop for the dense refine: build, SASS counts, parity, then
     its time on the main path's and the dense scene's inputs and over a
@@ -4308,6 +4917,9 @@ def main() -> int:
                         help="build the decode's kernels and run the serving and export phase alone")
     parser.add_argument("--zoo-only", action="store_true",
                         help="build the decode's two kernels and run phase 14 (the model zoo) alone")
+    parser.add_argument("--dp-train-only", action="store_true",
+                        help="build the decode's two kernels and run phase 15 (zoo and data-parallel "
+                             "training) alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -4365,6 +4977,8 @@ def main() -> int:
         return serve_only(dev, smi)
     if args.zoo_only:
         return zoo_only(dev, smi)
+    if args.dp_train_only:
+        return dp_train_only(dev, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -4598,6 +5212,9 @@ def main() -> int:
     # 14. the model zoo
     zoo_rec = zoo_phase(dev, counted, smi)
 
+    # 15. zoo and data-parallel training
+    dp_rec = dp_train_phase(dev, counted, smi)
+
     # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
     dense_in = record_kernel_inputs(decode_dense)
@@ -4611,7 +5228,8 @@ def main() -> int:
              "train_engine": train_engine_rec["launches"],
              "classification": cls_rec["launches"],
              "serve": serve_rec["launches"],
-             "zoo": zoo_rec["launches"]}
+             "zoo": zoo_rec["launches"],
+             "zoo_train_val": dp_rec["launches"]}
 
     def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
         return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
@@ -4637,7 +5255,8 @@ def main() -> int:
         infer_e2={key: {k_: v for k_, v in r.items() if k_.startswith("refine")}
                   for key, r in infer_rec["e2_kernels"].items()},
         eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("refine")},
-        zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("refine")}))
+        zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("refine")},
+        zoo_train_val={k_: v for k_, v in dp_rec["cli"].items() if k_.startswith("refine")}))
     cand, _, _, order, persons = main_in["match_by_tag"]
     # the plain grouping runs one image after another (~4 s an image on the
     # card): timed on the first MATCH_PLAIN_IMAGES images, the kernel too
@@ -4659,7 +5278,8 @@ def main() -> int:
         infer_e2={key: {k_: v for k_, v in r.items() if k_.startswith("match")}
                   for key, r in infer_rec["e2_kernels"].items()},
         eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("match")},
-        zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("match")}))
+        zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("match")},
+        zoo_train_val={k_: v for k_, v in dp_rec["cli"].items() if k_.startswith("match")}))
     kernels.append(row(
         "match_by_tag_per_image", "per_image", "exact joints and count; equal to match_by_tag",
         cuda_ms(lambda: cuda_match.match_by_tag_per_image(cand_s, DET_THR, TAG_THR, order_s, persons_s),
@@ -4737,6 +5357,7 @@ def main() -> int:
     print(json.dumps({"classification": cls_rec}), flush=True)
     print(json.dumps({"serve": serve_rec}), flush=True)
     print(json.dumps({"zoo": zoo_rec}), flush=True)
+    print(json.dumps({"dp_train": dp_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -30,6 +30,9 @@ so each counterpart is easy to find:
   server; ``utils.export`` (``torch.export`` program, flat-weights npz),
   ``utils.model_info`` and ``utils.argv`` (the serve, bench_serve and
   export CLIs' flags)
+* ``parallel`` — data-parallel training over ``torch.distributed``
+  processes (torchrun's process group, the data mesh, per-group and
+  process-group BatchNorm)
 * ``bin`` — the keypoints and classification train, eval and inference
   CLIs, serve, bench_serve and export
 

@@ -7,8 +7,9 @@ and one argv structure into the same config in both packages. Debug-mode
 rename (limit_batches > 0 -> experiment "debug"), ``ckpt_path: auto`` and
 the run-dir layout ``results/<exp>/<run>/<timestamp>`` are kept. The
 keypoints config builds the training datamodule and module, the callbacks,
-the logger and the trainer, and sets up the run's file logging; the mesh and
-more than one BatchNorm group come with module 14 and raise until then.
+the logger and the trainer, and sets up the run's file logging; under
+torchrun, the data-parallel mesh of the process group and the BatchNorm
+scope of the reference's per-device statistics.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import torch
 from ..loggers.loggers import FileTrackerLogger, Loggers, MlflowFileLogger, TerminalLogger
 from ..loggers.pylogger import add_file_handler, log, set_device_tag
 from ..utils.files import load_yaml
-from ..utils.utils import get_rank, is_main_process, process_count, seed_everything
+from ..utils.utils import (
+    get_rank, is_main_process, process_count, process_group_initialized, seed_everything,
+)
 from .cli import update_config
 from .structured import structure, unstructure
 
@@ -43,18 +46,6 @@ def find_last_checkpoint(experiment_dir: Path, run_name: str | None = None):
     latest = max(candidates, key=lambda p: p.stat().st_mtime)
     log.info(f"auto-resume: found {latest}")
     return str(latest)
-
-
-def _not_ported(what: str, module, name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with the port's {name}, ROADMAP module {module}")
-
-
-def _device_count(accelerator: str) -> int:
-    """The devices data parallelism would span, as ``jax.device_count()``
-    does in the JAX package: the processes' cards, or 1 on the CPU."""
-    if process_count() > 1:
-        return process_count()
-    return 1 if accelerator == "cpu" else max(1, torch.cuda.device_count())
 
 
 @dataclass
@@ -264,7 +255,8 @@ class BaseConfig:
 
     def target_device(self) -> str:
         """The CPU only when ``trainer.accelerator`` is "cpu"; the card
-        otherwise."""
+        otherwise (under torchrun the current card, ``cuda:LOCAL_RANK``,
+        which ``parallel.setup_distributed`` selects)."""
         return "cpu" if self.trainer.accelerator == "cpu" else "cuda"
 
     def initialize_logging(self) -> None:
@@ -292,25 +284,33 @@ class BaseConfig:
         seed_everything(self.setup.seed + get_rank())
 
     def make_mesh(self):
-        raise _not_ported("make_mesh", 14, "parallelism")
+        """The data-parallel mesh (``parallel.make_mesh``) when
+        ``trainer.use_DDP`` is set and the process runs in a
+        ``torch.distributed`` group (torchrun, world size 1 too); None
+        otherwise: one process trains alone."""
+        if not (self.trainer.use_DDP and process_group_initialized()):
+            return None
+        from ..parallel import make_mesh
+
+        return make_mesh()
 
     def bn_groups(self, mesh=None) -> int:
-        """BatchNorm statistics scope for training, as the JAX package's: one
-        group with ``trainer.sync_batchnorm`` (global batch moments), else one
-        a device under data parallelism (the reference's per-device
-        statistics). One device gives 1 either way; more than one group
-        (per-device BatchNorm) raises."""
-        if self.trainer.sync_batchnorm:
+        """BatchNorm statistics scope for training, the JAX package's rule:
+        one group with ``trainer.sync_batchnorm`` (global batch moments),
+        else one a device under data parallelism (the reference's
+        per-device statistics): the mesh's world size (one device a
+        process); 1 without a mesh, where a process trains alone on one
+        device."""
+        if self.trainer.sync_batchnorm or mesh is None:
             return 1
-        if mesh is not None:
-            raise _not_ported("bn_groups over a device mesh", 14, "parallelism")
-        groups = _device_count(self.trainer.accelerator) if self.trainer.use_DDP else 1
-        if groups > 1:
-            raise _not_ported(f"bn_groups {groups} (per-device BatchNorm statistics)", 14,
-                              "parallelism")
-        return 1
+        return mesh.world_size
 
     # -- factories (overridden per task) ------------------------------------------
+    def check_trainable(self) -> None:
+        """Raise for targets the task's network cannot train on (the
+        keypoints config checks their resolutions); called before a run
+        directory is made."""
+
     def create_net(self):
         raise NotImplementedError
 

@@ -10,7 +10,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..loggers.pylogger import log
-from .base import BaseConfig, TransformConfig, _not_ported, process_count
+from .base import BaseConfig, TransformConfig, process_count
 from .keypoints import unstruct_optims
 
 
@@ -23,15 +23,17 @@ class ClassificationTransformConfig(TransformConfig):
 class ClassificationConfig(BaseConfig):
     transform: ClassificationTransformConfig = field(default_factory=ClassificationTransformConfig)
 
-    def create_net(self, bn_groups: int = 1, device=None):
+    def create_net(self, bn_groups: int = 1, world_size: int = 1, device=None):
         """``ClassificationHRNet`` from ``net.params`` on ``device`` (default
-        ``target_device()``), weights not yet loaded."""
+        ``target_device()``), weights not yet loaded; its BatchNorm scope is
+        ``bn_groups`` groups of a global batch split over ``world_size``
+        processes (``models/norm.py::convert_batch_norm``)."""
         from ..models import ClassificationHRNet
+        from ..models.norm import convert_batch_norm
 
-        if bn_groups != 1:
-            raise _not_ported("bn_groups > 1 (per-device BatchNorm statistics)", 14, "parallelism")
         params = {k: tuple(v) if isinstance(v, list) else v for k, v in dict(self.net.params).items()}
-        return ClassificationHRNet(**params, device=device or self.target_device())
+        net = ClassificationHRNet(**params, device=device or self.target_device())
+        return convert_batch_norm(net, bn_groups, world_size)
 
     def _out_size(self) -> int:
         s = self.transform.out_size
@@ -79,7 +81,9 @@ class ClassificationConfig(BaseConfig):
         optimizer and schedulers (SGD at lr 0.1 when it names none)."""
         from ..train.module import ClassificationModule
 
-        model = self.create_net(bn_groups=self.bn_groups(mesh), device=device)
+        model = self.create_net(bn_groups=self.bn_groups(mesh),
+                                world_size=mesh.world_size if mesh else 1,
+                                device=device or (mesh.device if mesh else None))
         return ClassificationModule.create(
             model,
             optimizers_cfg=unstruct_optims(self.module.optimizers),

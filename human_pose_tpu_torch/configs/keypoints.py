@@ -33,33 +33,35 @@ class KeypointsTransformConfig(TransformConfig):
 class KeypointsConfig(BaseConfig):
     transform: KeypointsTransformConfig = field(default_factory=KeypointsTransformConfig)
 
-    def create_net(self, bn_groups: int = 1, device=None):
+    def create_net(self, bn_groups: int = 1, world_size: int = 1, device=None):
         """The port's network for ``setup.architecture`` (default
         HigherHRNet; Hourglass is the AE hourglass, SimpleBaseline and HRNet
         the single-person models) from ``net.params``, on ``device``
-        (default ``target_device()``), weights not yet loaded."""
+        (default ``target_device()``), weights not yet loaded; its BatchNorm
+        scope is ``bn_groups`` groups of a global batch split over
+        ``world_size`` processes (``models/norm.py::convert_batch_norm``)."""
         from .. import models
+        from ..models.norm import convert_batch_norm
 
-        if bn_groups != 1:
-            raise NotImplementedError("bn_groups > 1 (per-device BatchNorm statistics) comes with "
-                                      "the port's parallelism, ROADMAP module 14")
         arch = self.setup.architecture or "HigherHRNet"
         params = {k: tuple(v) if isinstance(v, list) else v
                   for k, v in dict(self.net.params).items() if k not in JAX_ONLY_NET_PARAMS}
         device = device or self.target_device()
         if arch == "HigherHRNet":
-            return models.HigherHRNet(**params, device=device)
-        if arch == "Hourglass":
-            return models.AEHourglassNet(num_kpts=params.get("num_kpts", 17),
-                                         num_stages=params.get("num_stages", 2), device=device)
-        if arch == "SimpleBaseline":
-            return models.SimpleBaseline(num_kpts=params.get("num_kpts", 17),
-                                         backbone=params.get("backbone", "resnet50"), device=device)
-        if arch == "HRNet":
+            net = models.HigherHRNet(**params, device=device)
+        elif arch == "Hourglass":
+            net = models.AEHourglassNet(num_kpts=params.get("num_kpts", 17),
+                                        num_stages=params.get("num_stages", 2), device=device)
+        elif arch == "SimpleBaseline":
+            net = models.SimpleBaseline(num_kpts=params.get("num_kpts", 17),
+                                        backbone=params.get("backbone", "resnet50"), device=device)
+        elif arch == "HRNet":
             params["num_keypoints"] = params.pop("num_kpts", 17)
-            return models.HRNetSPPE(**params, device=device)
-        raise ValueError(f"unknown keypoints architecture {arch!r} "
-                         f"(expected one of {ARCHITECTURES})")
+            net = models.HRNetSPPE(**params, device=device)
+        else:
+            raise ValueError(f"unknown keypoints architecture {arch!r} "
+                             f"(expected one of {ARCHITECTURES})")
+        return convert_batch_norm(net, bn_groups, world_size)
 
     def _make_transform(self):
         """``KeypointsTransform`` from the ``transform`` section; compact
@@ -126,20 +128,48 @@ class KeypointsConfig(BaseConfig):
             log.warning("empty train dataset — datamodule has no train loader")
         return DataModule(train_dl, val_dl, train_ds, val_ds)
 
+    def stage_resolutions(self) -> tuple:
+        """The heatmap stages' resolutions, as fractions of the input, of a
+        network ``KeypointsModule`` trains: HigherHRNet's 1/4 and 1/2, the
+        AE hourglass's 1/4 for each of its ``num_stages``; none for the
+        single-output nets, which it refuses."""
+        arch = self.setup.architecture or "HigherHRNet"
+        if arch == "Hourglass":
+            return (0.25,) * int(self.net.params.get("num_stages", 2))
+        return (0.25, 0.5) if arch == "HigherHRNet" else ()
+
+    def check_trainable(self) -> None:
+        """Refuse targets the network cannot train on, before anything is
+        built: an ``hm_resolutions`` entry of ``dataloader.train_ds``,
+        ``val_ds`` or ``transform`` (the masks' sizes) that is not the
+        matching stage's resolution (JAX fails later, in the loss, with a
+        broadcast error)."""
+        stages = self.stage_resolutions()
+        for name, section in (("dataloader.train_ds", self.dataloader.train_ds),
+                              ("dataloader.val_ds", self.dataloader.val_ds),
+                              ("transform", self.transform)):
+            res = list(section.hm_resolutions)
+            if any(float(r) != s for r, s in zip(res, stages)):
+                raise ValueError(f"{name}.hm_resolutions {res}: the "
+                                 f"{self.setup.architecture or 'HigherHRNet'} net's heatmap stages "
+                                 f"are at {list(stages)} of the input, and each target must match "
+                                 "its stage")
+
     def create_module(self, mesh=None, device=None):
-        """``KeypointsModule`` on the network (on ``device``, default
-        ``target_device()``), in ``compute_dtype()``, with the keypoints
-        init seeded from ``setup.seed`` and the yaml's optimizer and
-        schedulers; host batches staged in pinned memory when
-        ``dataloader.pin_memory`` is set. HigherHRNet only: training the
-        model zoo's architectures is not ported yet."""
+        """``KeypointsModule`` on the network (on ``device``, default the
+        mesh's or ``target_device()``), in ``compute_dtype()``, with the
+        BatchNorm scope of ``bn_groups(mesh)`` over the mesh's processes,
+        the keypoints init seeded from ``setup.seed`` and the yaml's
+        optimizer and schedulers; host batches staged in pinned memory when
+        ``dataloader.pin_memory`` is set. HigherHRNet and the AE hourglass
+        (``check_trainable``; ``KeypointsModule.create`` refuses the
+        single-output nets)."""
         from ..train.module import KeypointsModule
 
-        arch = self.setup.architecture or "HigherHRNet"
-        if arch != "HigherHRNet":
-            raise NotImplementedError(f"training {arch!r} comes with the port's zoo training, "
-                                      "ROADMAP module 15c; the architecture builds and infers")
-        model = self.create_net(bn_groups=self.bn_groups(mesh), device=device)
+        self.check_trainable()
+        model = self.create_net(bn_groups=self.bn_groups(mesh),
+                                world_size=mesh.world_size if mesh else 1,
+                                device=device or (mesh.device if mesh else None))
         return KeypointsModule.create(
             model,
             optimizers_cfg=unstruct_optims(self.module.optimizers),

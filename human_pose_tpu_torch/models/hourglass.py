@@ -14,6 +14,12 @@ Submodules carry the JAX model's names (``trunk.stem``,
 ``.remap_feats`` / ``.remap_heatmaps`` / ``.tags``; ``cba{1,2,3}`` and
 ``proj`` in a residual module, ``conv`` and ``bn`` in a ``ConvBnAct``), so
 the weights bridge maps a flax path to its key by joining it with dots.
+
+In train mode every BatchNorm (each ``ConvBnAct``'s ``bn``) is the port's
+flax-statistics ``BatchNorm2d`` (the config's ``create_net`` gives it the
+run's statistics scope, ``models/norm.py::convert_batch_norm``). The AE
+hourglass trains through ``train/steps.py`` as HigherHRNet does, with every
+heatmap target at 1/4 (``hm_resolutions [0.25, 0.25]`` for two stages).
 """
 
 from __future__ import annotations

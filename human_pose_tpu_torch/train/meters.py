@@ -1,12 +1,16 @@
 """Streaming metric averages (port of human_pose_tpu/train/meters.py).
 
-Counterpart of reference src/base/meters.py. The reference's
-``AverageMeter.all_reduce`` (NCCL SUM of [sum, count]) is not needed while
-the port trains in one process: a step's metrics are already the batch's
-means, so host-side running averages suffice.
+Counterpart of reference src/base/meters.py. A data-parallel train step's
+metrics are already averaged over the processes (``train/steps.py``); the
+validation meters are combined after an evaluate with ``all_reduce`` (the
+reference's: a SUM of [sum, count] over the processes), so every process
+holds the global averages.
 """
 
 from __future__ import annotations
+
+import torch
+import torch.distributed as dist
 
 
 class AverageMeter:
@@ -28,6 +32,13 @@ class AverageMeter:
         self.sum += float(value) * n
         self.count += n
 
+    def all_reduce(self, mesh) -> None:
+        """Sum ``sum`` and ``count`` over the processes of ``mesh`` (a
+        ``parallel.Mesh``), in float64 on its device."""
+        both = torch.tensor([self.sum, float(self.count)], dtype=torch.float64, device=mesh.device)
+        dist.all_reduce(both, group=mesh.group)
+        self.sum, self.count = float(both[0]), int(both[1])
+
 
 class Meters:
     def __init__(self):
@@ -42,6 +53,12 @@ class Meters:
     def reset(self) -> None:
         for m in self.meters.values():
             m.reset()
+
+    def all_reduce(self, mesh) -> None:
+        """``AverageMeter.all_reduce`` of every meter over ``mesh``, in name
+        order (every process holds the same names)."""
+        for name in sorted(self.meters):
+            self.meters[name].all_reduce(mesh)
 
     def to_dict(self) -> dict[str, float]:
         return {name: m.avg for name, m in self.meters.items()}

@@ -13,6 +13,11 @@ rate of each step is the first scheduler's; schedulers with ``interval``
 (channel-last, the JAX package's arrays) to the state's device in the
 steps' NCHW layout (``train/prefetch.py::host_batch_to_device``); a
 ``DeviceBatch`` from ``DevicePrefetcher`` is already there.
+
+With a ``parallel.Mesh`` (data parallelism over a process group) every
+process builds the same seeded state, which ``replicate_global`` then makes
+rank 0's exactly; each process's batch is its shard of the global batch,
+and the steps average over the processes (``train/steps.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +27,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..models import init_classification_weights_, init_keypoints_weights_
+from ..models import (
+    HourglassNet, HRNetSPPE, SimpleBaseline, init_classification_weights_, init_keypoints_weights_,
+)
+from ..parallel.mesh import replicate_global
 from .optim import LRScheduler, create_lr_scheduler, create_optimizer
 from .prefetch import DeviceBatch, host_batch_to_device
 from .state import TrainState
@@ -33,6 +41,8 @@ from .steps import (
 
 # the JAX package's val-time decode thresholds (reference keypoints/module.py:95-99)
 VAL_DET_THR, VAL_TAG_THR = 0.1, 1.0
+# the SPPE nets: KeypointsModule's loss takes (heatmap stages, tags)
+SINGLE_OUTPUT_NETS = (HourglassNet, HRNetSPPE, SimpleBaseline)
 
 
 class BaseModule:
@@ -57,12 +67,17 @@ class BaseModule:
         """The module of ``model`` (already on its device), its weights from
         ``init_weights(model, generator)`` and its optimizer and schedulers
         from dicts shaped like the yaml's. ``dtype`` is the compute dtype
-        (float32, or bfloat16 under autocast)."""
-        if mesh is not None:
-            raise NotImplementedError("a device mesh comes with the port's parallelism, "
-                                      "ROADMAP module 14")
+        (float32, or bfloat16 under autocast). With a ``parallel.Mesh``
+        the model must be on the mesh's device; after the init every process
+        holds rank 0's parameters and buffers, and the steps are
+        data-parallel."""
+        device = next(model.parameters()).device
+        if mesh is not None and device != mesh.device:
+            raise ValueError(f"the model is on {device}, the mesh's device is {mesh.device}")
         if init_weights is not None:
             init_weights(model, torch.Generator().manual_seed(seed))
+        if mesh is not None:
+            replicate_global(mesh, model)
         opt_cfg = optimizers_cfg["optim"]
         params = dict(opt_cfg.get("params") or {})
         lr = float(params.pop("lr", 1e-3))
@@ -70,8 +85,7 @@ class BaseModule:
         if "betas" in params:
             params["betas"] = tuple(params["betas"])
         optimizer = create_optimizer(model.parameters(), opt_cfg["name"], lr, **params)
-        device = next(model.parameters()).device
-        state = TrainState.create(model, optimizer, dtype=dtype, device=device)
+        state = TrainState.create(model, optimizer, dtype=dtype, device=device, mesh=mesh)
         schedulers = {}
         for key, sch in (lr_schedulers_cfg or {}).items():
             schedulers[key] = create_lr_scheduler(
@@ -186,7 +200,14 @@ class KeypointsModule(BaseModule):
     def create(cls, model, optimizers_cfg=None, lr_schedulers_cfg=None, seed=42, mesh=None,
                **kw) -> "KeypointsModule":
         """Adam at lr 1e-3 unless the dicts say otherwise; the keypoints init
-        (``init_keypoints_weights_``)."""
+        (``init_keypoints_weights_``). A net with one output (the SPPE
+        models: heatmap stages, no tags) raises, as JAX's step cannot train
+        it."""
+        if isinstance(model, SINGLE_OUTPUT_NETS):
+            raise NotImplementedError(
+                f"{type(model).__name__} has a single output (a list of heatmap stages, no "
+                "tags): the JAX package's KeypointsModule cannot train it either (its step "
+                "unpacks (stages, tags), human_pose_tpu/train/steps.py:109)")
         return super().create(
             model,
             optimizers_cfg or {"optim": {"name": "Adam", "params": {"lr": 1e-3}}},

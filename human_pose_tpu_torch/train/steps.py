@@ -12,6 +12,13 @@ The compute dtype is the state's: float32, or bfloat16 under
 state, and no ``GradScaler`` (bf16 has float32's exponent range), as the
 JAX package's bf16 policy does.
 
+With a ``parallel.Mesh`` in the state (one process of a data-parallel
+group, each on its shard of the global batch), ``_update`` first averages
+the parameter gradients and the per-process BatchNorm running statistics
+over the processes, and a train step's metrics are averaged before they are
+returned: with equal shards, the JAX package's step on the global batch.
+Without a mesh nothing of that runs.
+
 * classification: ``images`` ``[N, 3, H, W]`` uint8 or float and
   ``labels`` ``[N]`` int; cross entropy and the top-1 and top-5 errors.
 * keypoints: batch ``images`` as above, ``heatmaps`` a list of
@@ -27,6 +34,7 @@ import torch
 
 from ..ops.grouping import _top_k
 from ..ops.images import prep_images
+from ..parallel.mesh import all_reduce_mean_, average_gradients_, average_running_stats_
 from .losses import ae_keypoints_loss, classification_loss
 from .optim import set_learning_rate
 from .state import TrainState
@@ -85,7 +93,7 @@ def classification_train_step(state: TrainState, images, labels, lr):
     state.optimizer.zero_grad(set_to_none=True)
     metrics = _classification_backward(state, batch)
     _update(state, lr)
-    return state, metrics
+    return state, _global_metrics(state, metrics)
 
 
 @torch.no_grad()
@@ -131,9 +139,22 @@ def _keypoints_backward(state: TrainState, batch: dict) -> dict:
 
 
 def _update(state: TrainState, lr) -> None:
+    if state.mesh is not None:
+        average_gradients_(state.mesh, state.model)
+        average_running_stats_(state.mesh, state.model)
     set_learning_rate(state.optimizer, lr)
     state.optimizer.step()
     state.step += 1
+
+
+def _global_metrics(state: TrainState, metrics: dict) -> dict:
+    """A train step's metrics, averaged over the mesh's processes (the
+    global batch's means for equal shards); as they are without a mesh."""
+    if state.mesh is None:
+        return metrics
+    values = torch.stack([v.float() for v in metrics.values()])
+    all_reduce_mean_(state.mesh, [values])
+    return dict(zip(metrics, values.unbind()))
 
 
 def keypoints_train_step(state: TrainState, batch: dict, lr):
@@ -143,7 +164,7 @@ def keypoints_train_step(state: TrainState, batch: dict, lr):
     state.optimizer.zero_grad(set_to_none=True)
     metrics = _keypoints_backward(state, batch)
     _update(state, lr)
-    return state, metrics
+    return state, _global_metrics(state, metrics)
 
 
 @torch.no_grad()
@@ -184,7 +205,8 @@ def _accumulated(state: TrainState, micro: list, backward, lr):
                 if p.grad is not None:
                     p.grad.div_(len(micro))
     _update(state, lr)
-    return state, {key: torch.stack([m[key] for m in metrics]).mean(0) for key in metrics[0]}
+    return state, _global_metrics(
+        state, {key: torch.stack([m[key] for m in metrics]).mean(0) for key in metrics[0]})
 
 
 def accumulated_keypoints_train_step(n_micro: int):

@@ -5,7 +5,12 @@ evaluate / sanity_check / checkpoint orchestration): epochs, meters, metric
 storage, callbacks, checkpoints (``train/checkpoint.py``, saved on a
 background thread), ``limit_batches`` debug mode and failure finalization.
 The steps are ``KeypointsModule``'s; the train loader runs through
-``DevicePrefetcher``. One process: more than one is ROADMAP module 14.
+``DevicePrefetcher``. Over several processes (``parallel``) each trains on
+its shard; only the main process shows progress bars and logs, under a
+data-parallel mesh the validation meters are combined over its processes
+after an evaluate, and
+the main process writes each checkpoint while the others wait at a
+barrier, as the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from tqdm.auto import tqdm
 
 from ..loggers.loggers import Loggers, Status
 from ..loggers.pylogger import log
+from ..parallel.mesh import barrier
 from ..utils.profiling import StepWindowProfiler
 from ..utils.utils import is_main_process, process_count
 from .callbacks import Callbacks
@@ -174,6 +180,10 @@ class Trainer:
                     log.warning(f"make_results failed: {e}")
         if pending is not None:
             meters.update(metrics_to_host(pending))
+        # under a mesh each process validated its shard: the global means
+        # on every process (SaveModelCheckpoint's decisions must agree)
+        if self.module.state.mesh is not None:
+            meters.all_reduce(self.module.state.mesh)
         avg = meters.to_dict()
         self.storage.append(avg, self.current_step, self.current_epoch, split)
         self.callbacks.on_validation_end(self)
@@ -259,7 +269,8 @@ class Trainer:
         """``path`` with the module's state and schedulers, the loader's
         state, the storage, the callbacks' and the logger's: on the
         background writer when ``async_ckpt`` is set (one process), else
-        here."""
+        here by the main process while every process waits at a barrier
+        until the file exists."""
         kwargs = dict(
             lr_schedulers=self.module.schedulers_state_dict(),
             datamodule_state=self.datamodule.state_dict() if self.datamodule else {},
@@ -269,8 +280,10 @@ class Trainer:
         )
         if self.async_ckpt and process_count() == 1:
             self._ckpt_writer.submit(path, self.module.state, self.current_epoch, **kwargs)
-        elif is_main_process():
+            return
+        if is_main_process():
             save_checkpoint(path, self.module.state, self.current_epoch, **kwargs)
+        barrier("save_checkpoint")
 
     def load_checkpoint(self, path: str | Path) -> int:
         """Restore a port checkpoint into the module, the loader, the

@@ -15,12 +15,18 @@ import numpy as np
 import torch
 
 
+def process_group_initialized() -> bool:
+    """Whether ``torch.distributed``'s default process group exists
+    (``parallel.setup_distributed``)."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
 def get_rank() -> int:
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return int(os.environ.get("RANK", 0))
+    return dist.get_rank() if process_group_initialized() else int(os.environ.get("RANK", 0))
 
 
 def is_main_process() -> bool:
@@ -32,7 +38,7 @@ def process_count() -> int:
     none is initialized."""
     import torch.distributed as dist
 
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return dist.get_world_size() if process_group_initialized() else 1
 
 
 def seed_everything(seed: int) -> None:

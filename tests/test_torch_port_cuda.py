@@ -857,6 +857,46 @@ def test_prep_images_card_equals_cpu(dev):
     assert torch.equal(prep_images(u8.to(dev)).cpu(), prep_images(u8))
 
 
+def _batch_norm_card_vs_cpu(dev, dtype, make, groups: int = 1) -> None:
+    """One train-mode call of the BatchNorm ``make()`` over ``groups``
+    consecutive groups of a batch of 6, on the card and on the CPU, held
+    as ``test_batch_norm_train_card_equals_cpu`` says against float64 of
+    the same formulas, each group with its own moments."""
+    gen = torch.Generator().manual_seed(11)
+    x = (torch.randn((6, 32, 24, 20), generator=gen) * (0.1 + 3 * torch.rand((1, 32, 1, 1), generator=gen))
+         + torch.randn((1, 32, 1, 1), generator=gen)).to(dtype)
+    gy = torch.randn(x.shape, generator=gen).to(dtype)
+    w, b = torch.linspace(0.5, 1.5, 32), torch.linspace(-0.2, 0.2, 32)
+    stats, outs = [], None
+    for where in ("cpu", dev):
+        m = make().to(where).train()
+        with torch.no_grad():
+            m.weight.copy_(w)
+            m.bias.copy_(b)
+        xx = x.detach().to(where).requires_grad_()
+        y = m(xx)
+        y.backward(gy.to(where))
+        stats.append([t.cpu() for t in (m.running_mean, m.running_var)])
+        outs = [t.detach().double().cpu() for t in (y, xx.grad, m.weight.grad, m.bias.grad)]
+    for got, want in zip(stats[1], stats[0]):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    shape, dims, c = (groups, 6 // groups, 32, 24, 20), (1, 3, 4), (None, None, slice(None), None, None)
+    x64, gy64 = x.double().reshape(shape), gy.double().reshape(shape)
+    mean = x64.mean(dims, keepdim=True)
+    var = (x64 - mean).square().mean(dims, keepdim=True)
+    xhat = (x64 - mean) / (var + 1e-5).sqrt()
+    sum_w, sum_b = (gy64 * xhat).sum(dims, keepdim=True), gy64.sum(dims, keepdim=True)
+    n = x64[0].numel() / 32
+    grad_x = w.double()[c] / (var + 1e-5).sqrt() * (gy64 - sum_b / n - xhat * sum_w / n)
+    want = [(xhat * w.double()[c] + b.double()[c]).reshape(x.shape), grad_x.reshape(x.shape),
+            sum_w.sum(0).flatten(), sum_b.sum(0).flatten()]
+    for i, (got, ref) in enumerate(zip(outs, want)):
+        tol = 2 ** -7 if dtype == torch.bfloat16 and i < 2 else 1e-4
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        assert err <= tol, (i, err)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_batch_norm_train_card_equals_cpu(dev, dtype):
     """One train-mode call of the port's BatchNorm (flax's: biased E[x^2] -
@@ -872,38 +912,19 @@ def test_batch_norm_train_card_equals_cpu(dev, dtype):
     precision, 2.3e-3 and 4.4e-3, so the port sums them itself)."""
     from human_pose_tpu_torch.models.norm import batch_norm
 
-    gen = torch.Generator().manual_seed(11)
-    x = (torch.randn((6, 32, 24, 20), generator=gen) * (0.1 + 3 * torch.rand((1, 32, 1, 1), generator=gen))
-         + torch.randn((1, 32, 1, 1), generator=gen)).to(dtype)
-    gy = torch.randn(x.shape, generator=gen).to(dtype)
-    w, b = torch.linspace(0.5, 1.5, 32), torch.linspace(-0.2, 0.2, 32)
-    stats, outs = [], None
-    for where in ("cpu", dev):
-        m = batch_norm(32).to(where).train()
-        with torch.no_grad():
-            m.weight.copy_(w)
-            m.bias.copy_(b)
-        xx = x.detach().to(where).requires_grad_()
-        y = m(xx)
-        y.backward(gy.to(where))
-        stats.append([t.cpu() for t in (m.running_mean, m.running_var)])
-        outs = [t.detach().double().cpu() for t in (y, xx.grad, m.weight.grad, m.bias.grad)]
-    for got, want in zip(stats[1], stats[0]):
-        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    _batch_norm_card_vs_cpu(dev, dtype, lambda: batch_norm(32))
 
-    x64, gy64, c = x.double(), gy.double(), (None, slice(None), None, None)
-    mean = x64.mean((0, 2, 3))
-    xhat = (x64 - mean[c]) / (x64.var((0, 2, 3), unbiased=False) + 1e-5).sqrt()[c]
-    grad_w = (gy64 * xhat).sum((0, 2, 3))
-    grad_b = gy64.sum((0, 2, 3))
-    n = x64.numel() / 32
-    grad_x = (w.double() / (x64.var((0, 2, 3), unbiased=False) + 1e-5).sqrt())[c] * (
-        gy64 - (grad_b / n)[c] - xhat * (grad_w / n)[c])
-    want = [xhat * w.double()[c] + b.double()[c], grad_x, grad_w, grad_b]
-    for i, (got, ref) in enumerate(zip(outs, want)):
-        tol = 2 ** -7 if dtype == torch.bfloat16 and i < 2 else 1e-4
-        err = float((got - ref).abs().max()) / float(ref.abs().max())
-        assert err <= tol, (i, err)
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_batch_norm_train_card_equals_cpu(dev, dtype, groups):
+    """``LocalBatchNorm`` (JAX's two-pass moments through the BatchNorm
+    kernels; one group is a process's own shard under per-device
+    statistics) as ``test_batch_norm_train_card_equals_cpu``, each group
+    against float64 of its own moments."""
+    from human_pose_tpu_torch.parallel import LocalBatchNorm
+
+    _batch_norm_card_vs_cpu(dev, dtype, lambda: LocalBatchNorm(32, num_groups=groups), groups)
 
 
 def test_train_step_reduced_card_equals_cpu(dev):
@@ -1457,3 +1478,126 @@ def test_ae_hourglass_inference_launches_each_kernel_once(dev):
     assert torch.equal(valid.cpu(), cv) and int(cv.sum()) >= 1
     # the kernels equal their plain versions; the rest of the decode as phase 6 holds it
     assert float((joints.cpu()[cv][..., :3] - cj[cv][..., :3]).abs().max()) <= 1e-3
+
+
+# -- zoo and data-parallel training --------------------------------------------------------
+
+def test_ae_hourglass_step_reduced_card_equals_cpu(dev):
+    """One float32 Adam step of the one-stage full-width AE hourglass (batch
+    2 at 128^2) on the card and on the CPU from the same weights and batch:
+    ``chip_smoke``'s phase 15 check and its tolerances (loss terms rel
+    1e-4, each device's gradients within 1e-3 of float64 evaluated with its
+    own ReLU decisions, BN statistics, parameters after the step)."""
+    import chip_smoke
+
+    out = chip_smoke.ae_hourglass_step_card_vs_cpu(dev)
+    assert out["loss_rel"] <= 1e-4 and out["grad_rel_max"] <= 1e-3 and out["no_grad_params"] == 4
+
+
+def test_world_size_one_nccl_step_bit_equal(dev):
+    """An NCCL process group of one, joined from torchrun's environment
+    (``chip_smoke.process_group_of_one``): two keypoints steps of the
+    one-stage AE hourglass through the mesh (gradients, BatchNorm
+    statistics and metrics all-reduced, the initial state broadcast) equal
+    two steps without a mesh, bit for bit: metrics, parameters and buffers
+    (float32, cuDNN deterministic, no autotuning)."""
+    import torch.distributed as dist
+
+    from human_pose_tpu_torch.models import AEHourglassNet, init_keypoints_weights_
+    from human_pose_tpu_torch.parallel import replicate_global
+    from human_pose_tpu_torch.train import TrainState, create_optimizer, keypoints_train_step
+
+    import chip_smoke
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        with chip_smoke.process_group_of_one() as mesh:
+            assert dist.get_backend() == "nccl" and mesh.world_size == 1 and mesh.device == dev
+            net = init_keypoints_weights_(AEHourglassNet(17, 1, device=dev), torch.Generator().manual_seed(4))
+            batch = chip_smoke.train_batch(2, 128, 10, torch.Generator(device=dev).manual_seed(4), dev,
+                                           strides=(4,))
+            runs = []
+            for m in (None, mesh):
+                model = copy.deepcopy(net)
+                if m is not None:
+                    replicate_global(m, model)
+                state = TrainState.create(model, create_optimizer(model.parameters(), "Adam", 1e-3),
+                                          device=dev, mesh=m)
+                metrics = [{k: float(v) for k, v in keypoints_train_step(state, batch, 1e-3)[1].items()}
+                           for _ in range(2)]
+                runs.append((metrics, {k: v.cpu() for k, v in model.state_dict().items()}))
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    assert not dist.is_initialized()
+    (m_plain, sd_plain), (m_mesh, sd_mesh) = runs
+    assert m_plain == m_mesh
+    assert all(torch.equal(v, sd_mesh[k]) for k, v in sd_plain.items())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sync_batch_norm_in_nccl_group_of_one(dev, dtype):
+    """``SyncBatchNorm2d`` in an NCCL group of one (its moments and its
+    backward's sums all-reduced on the card) against ``BatchNorm2d`` on the
+    same input: the output and the input's gradient within 1e-5 and 1e-4
+    of their scale in float32 (2**-7 in bfloat16: ``BatchNorm2d`` rounds
+    its bf16 gradient, ``SyncBatchNorm2d`` computes it in float32), the
+    parameters' float32 gradients within 1e-4, the running statistics
+    within 1e-6."""
+    from human_pose_tpu_torch.models.norm import BatchNorm2d, SyncBatchNorm2d
+
+    import chip_smoke
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = (torch.randn(4, 8, 16, 16, generator=g, device=dev) * 2 + 1).to(dtype)
+    r = torch.randn(4, 8, 16, 16, generator=g, device=dev)
+    outs = []
+    with chip_smoke.process_group_of_one():
+        for cls in (BatchNorm2d, SyncBatchNorm2d):
+            bn = cls(8).to(dev).train()
+            xi = x.clone().requires_grad_(True)
+            y = bn(xi)
+            (y.float() * r).sum().backward()
+            outs.append((y.float(), xi.grad.float(), bn.weight.grad, bn.bias.grad, bn.running_mean,
+                         bn.running_var))
+    (y0, gx0, gw0, gb0, m0, v0), (y1, gx1, gw1, gb1, m1, v1) = outs
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert float((y1 - y0).abs().max()) <= tol * float(y0.abs().max())
+    assert float((gx1 - gx0).abs().max()) <= max(tol, 1e-4) * float(gx0.abs().max())
+    for a, b in ((gw1, gw0), (gb1, gb0)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert gw1.dtype == gb1.dtype == torch.float32
+    assert float((m1 - m0).abs().max()) <= 1e-6 and float((v1 - v0).abs().max()) <= 1e-6 * float(v0.max())
+
+
+def test_ae_hourglass_make_results_launches_each_kernel_once(dev):
+    """``KeypointsModule.make_results`` on the two-stage AE hourglass's
+    validation outputs (two 1/4 stages and the last stage's tags, seeded
+    weights): one launch of the dense refine and of the grouping, at the
+    val thresholds (det 0.1, tag 1.0), each equal to its plain version on
+    those inputs; a result an image with finite joints."""
+    import chip_smoke
+    from human_pose_tpu_torch.models import AEHourglassNet, init_flax_default_
+    from human_pose_tpu_torch.train import DeviceBatch, KeypointsModule
+
+    module = KeypointsModule.create(AEHourglassNet(17, 2, device=dev))
+    init_flax_default_(module.model, torch.Generator().manual_seed(5))
+    batch = DeviceBatch(chip_smoke.train_batch(2, 128, 10, torch.Generator(device=dev).manual_seed(5), dev,
+                                               strides=(4, 4)))
+    _, outputs = module.validation_step(batch)
+    assert [tuple(h.shape) for h in outputs[0]] == [(2, 17, 32, 32)] * 2
+    before = (refine_argmax_batch.launches, match_by_tag_batched.launches)
+    seen = chip_smoke.record_kernel_inputs(lambda: module.make_results(batch, outputs))
+    torch.cuda.synchronize()
+    assert (refine_argmax_batch.launches - before[0], match_by_tag_batched.launches - before[1]) == (1, 1)
+    hm, tg, prev, cnt = seen["refine_argmax"]
+    cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
+    assert (det_thr, tag_thr) == (0.1, 1.0)
+    assert torch.equal(refine_argmax_batch(hm, tg, prev, cnt).cpu(),
+                       refine_argmax_batch_plain(hm.cpu(), tg.cpu(), prev.cpu(), cnt.cpu()))
+    got = match_by_tag_batched(cand, det_thr, tag_thr, order, persons)
+    want = match_by_tag_batched_plain(cand.cpu(), det_thr, tag_thr, order, persons)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    results = module.make_results(batch, outputs)
+    assert len(results) == 2 and all(np.isfinite(r.kpts_coords).all() for r in results)

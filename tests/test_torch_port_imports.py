@@ -43,8 +43,8 @@ def test_package_imports_with_jax_blocked():
     the JAX package made unimportable, and without CUDA: the subpackages of
     the inference and eval paths, the CLIs and training (its engine and
     CLI) too, the classification CLIs, config and dataset, serving and
-    export (their CLIs, the flag parser, model info), and the model zoo
-    (its nets, the SPPE decode, MPII and PCKh)."""
+    export (their CLIs, the flag parser, model info), the model zoo (its
+    nets, the SPPE decode, MPII and PCKh), and data parallelism."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'human_pose_tpu'): sys.modules[m] = None\n"
@@ -67,6 +67,7 @@ def test_package_imports_with_jax_blocked():
         "import human_pose_tpu_torch.models.simple_baseline, human_pose_tpu_torch.models.hourglass\n"
         "import human_pose_tpu_torch.ops.sppe, human_pose_tpu_torch.data.mpii\n"
         "import human_pose_tpu_torch.metrics.pckh\n"
+        "import human_pose_tpu_torch.parallel, human_pose_tpu_torch.parallel.distributed\n"
         "print('ok')\n"
     )
     res = _run(code, ROOT)

@@ -158,11 +158,17 @@ def test_create_matches_jax_schedulers(case):
 
 
 def test_module_refusals():
+    """A mesh whose device is not the model's raises (data parallelism is
+    tests/test_torch_port_parallel.py's); the orbax backend refuses,
+    naming ROADMAP module 16."""
+    from human_pose_tpu_torch.parallel import Mesh
+
     net = HigherHRNet(num_kpts=K, C=8, device="cpu", **SHALLOW)
-    with pytest.raises(NotImplementedError, match="module 14"):
-        KeypointsModule.create(net, mesh=object())
-    with pytest.raises(NotImplementedError, match="module 14"):
-        ClassificationModule.create(net, mesh=object())
+    mesh = Mesh(rank=0, world_size=1, device=torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="mesh's device"):
+        KeypointsModule.create(net, mesh=mesh)
+    with pytest.raises(ValueError, match="mesh's device"):
+        ClassificationModule.create(net, mesh=mesh)
     with pytest.raises(NotImplementedError, match="module 16"):
         Trainer(None, [], ckpt_backend="orbax")
 
@@ -331,19 +337,17 @@ def test_config_module_trains_on_the_cpu(tmp_path, coco_root):
     ({"use_DDP": True, "accelerator": "cpu"}, 4, 1),
     ({"use_DDP": True, "accelerator": "gpu"}, 1, 1),
     ({"use_DDP": True, "accelerator": "gpu"}, 0, 1),
-    ({"use_DDP": True, "accelerator": "gpu"}, 4, None),
+    ({"use_DDP": True, "accelerator": "gpu"}, 4, 1),
 ])
 def test_bn_groups(monkeypatch, trainer, cards, want):
     """One group wherever the JAX package's gives one on one device (with
-    ``sync_batchnorm``, without data parallelism, or on one device);
-    more than one group (per-device statistics) raises, naming module 14."""
+    ``sync_batchnorm``, without data parallelism, or on one device). A
+    process of the port trains on one card whatever the host has, so one
+    process is one group with 4 cards too; more processes are
+    tests/test_torch_port_parallel.py's."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     cfg = KeypointsConfig.from_dict({"trainer": trainer})
-    if want is None:
-        with pytest.raises(NotImplementedError, match="module 14"):
-            cfg.bn_groups()
-    else:
-        assert cfg.bn_groups() == want
+    assert cfg.bn_groups() == want
     if trainer.get("sync_batchnorm") or not trainer.get("use_DDP", True):
         assert JaxKeypointsConfig.from_dict({"trainer": trainer}).bn_groups() == want
 

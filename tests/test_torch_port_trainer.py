@@ -372,19 +372,40 @@ def test_orbax_backend_refuses_before_the_run(setup):
 
 def test_cli_refuses_missing_card_and_several_processes(setup, tmp_path, monkeypatch):
     """Without ``--trainer.accelerator=cpu`` the CLI needs a card and raises
-    before it makes a run directory; more than one process refuses, naming
-    ROADMAP module 14."""
+    before it makes a run directory (also when torchrun launched it: NCCL
+    on a card, never gloo). Several processes no longer refuse: with
+    torchrun's environment the CLI joins a process group (gloo on the CPU;
+    here a group of one), trains on its mesh to FINISHED and destroys the
+    group at the end."""
+    import socket
+
+    import torch.distributed as dist
+
     from human_pose_tpu_torch.bin import train_keypoints
 
     _, yaml_path, _, _ = setup
     monkeypatch.chdir(tmp_path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_keypoints.main([f"--config={yaml_path}", "--trainer.accelerator=gpu"])
         assert not (tmp_path / "results").exists()
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="module 14"):
-        train_keypoints.main([f"--config={yaml_path}"])
+    for var, value in (("RANK", "0"), ("LOCAL_RANK", "0"), ("WORLD_SIZE", "1"),
+                       ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port))):
+        monkeypatch.setenv(var, value)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            train_keypoints.main([f"--config={yaml_path}", "--trainer.accelerator=gpu"])
+        assert not dist.is_initialized()
+    meshes = []
+    make_mesh = KeypointsConfig.make_mesh
+    monkeypatch.setattr(KeypointsConfig, "make_mesh", lambda cfg: meshes.append(make_mesh(cfg)) or meshes[-1])
+    tr = train_keypoints.main([f"--config={yaml_path}", "--trainer.max_epochs=1"])
+    assert meshes[0].world_size == 1 and tr.module.state.mesh is meshes[0]
+    assert json.loads((tr.log_path / "tracker" / "run.json").read_text())["status"] == "FINISHED"
+    assert not dist.is_initialized()
 
 
 def test_fit_profiles_steps_1_and_2(setup):

@@ -407,9 +407,13 @@ def test_configs_build_every_architecture(arch):
     assert im.device == torch.device("cpu") and im.dtype == torch.float32
     assert not im.model.training
     assert im(_raw(70, 90, 9)).kpts_coords.shape[1:] == (17, 2)
-    if arch != "HigherHRNet":  # zoo training is not ported yet: a clear refusal
-        with pytest.raises(NotImplementedError, match="training"):
-            KeypointsConfig.from_dict({**cfg, "net": {"params": tiny}}).create_module()
+    train_cfg = KeypointsConfig.from_dict({**cfg, "net": {"params": tiny}})
+    if sppe:  # a single output: JAX's KeypointsModule cannot train it either
+        with pytest.raises(NotImplementedError, match="single output"):
+            train_cfg.create_module()
+    elif arch == "Hourglass":  # two stages at 1/4: the default [0.25, 0.5] targets refuse
+        with pytest.raises(ValueError, match="hm_resolutions"):
+            KeypointsConfig.from_dict(cfg).check_trainable()
 
 
 def test_serving_and_batched_eval_refuse_sppe_models(zoo):
