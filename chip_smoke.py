@@ -14,6 +14,7 @@
     python3 chip_smoke.py --serve-only         # serving and export alone, see the end
     python3 chip_smoke.py --zoo-only           # the model zoo alone, see the end
     python3 chip_smoke.py --dp-train-only      # zoo and data-parallel training alone, see the end
+    python3 chip_smoke.py --sharded-eval-only  # distributed eval and the utilities alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -176,6 +177,19 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    NCCL group of one, the data-parallel mesh and its collectives) and one
    without: metrics, weights and Adam state of last.pt bit for bit equal
    (cuDNN deterministic), the NCCL version and the group's backend
+16. distributed eval and the last utilities (``sharded_eval_phase``): on
+   phase 8's corpus with cuDNN deterministic, ``bin.eval_keypoints
+   --sharded=true --batch_size=8`` under ``torch.distributed.run
+   --nproc_per_node=1`` (NCCL) and, in this process, the CLI without and
+   with ``--sharded=true`` under torchrun's environment: one launch of the
+   dense refine and of the grouping a batch in both, the three results
+   files with the same detections bit for bit, each kernel on the sharded
+   path's last batch equal to its plain version, img/s at batch 8 without
+   a mesh and through an NCCL group of one (float32, bfloat16, in turns);
+   W32's Adam state through the file and the directory checkpoint backends
+   (save, async submit and write, restore: ms, MB, bit for bit); the
+   card-memory monitor against ``mem_get_info``; the native RLE decode
+   against NumPy
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
@@ -220,8 +234,8 @@ grouping for its validation), ``--train-engine-only`` for phase 11 (the
 same two kernels; without phase 10 in the process it measures phase 10's
 steady step itself), ``--classification-only`` for phase 12 (which
 builds no kernel), ``--serve-only`` for phase 13, ``--zoo-only`` for
-phase 14 and ``--dp-train-only`` for phase 15 (each the dense refine and the
-grouping).
+phase 14, ``--dp-train-only`` for phase 15 and ``--sharded-eval-only`` for
+phase 16 (each the dense refine and the grouping).
 """
 
 from __future__ import annotations
@@ -4221,34 +4235,48 @@ def ae_hourglass_steps(dev, smi: str) -> dict:
     return out
 
 
-@contextlib.contextmanager
-def process_group_of_one(device_type: str = "cuda"):
-    """A ``torch.distributed`` group of this process alone, joined as
-    torchrun's one rank (``setup_distributed`` from ``RANK=0 WORLD_SIZE=1
-    LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=<free>``: NCCL on the
-    card); yields ``make_mesh()``. The group is destroyed and the
-    environment restored after."""
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1, chosen by the OS."""
     import socket
-
-    from human_pose_tpu_torch.parallel import finalize_distributed, make_mesh, setup_distributed
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env_of_one():
+    """torchrun's environment for one rank in this process (``RANK=0
+    WORLD_SIZE=1 LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=<free>``),
+    restored after."""
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
-           "MASTER_PORT": str(port)}
+           "MASTER_PORT": str(free_port())}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        setup_distributed(device_type)
-        yield make_mesh()
+        yield
     finally:
-        finalize_distributed()
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@contextlib.contextmanager
+def process_group_of_one(device_type: str = "cuda"):
+    """A ``torch.distributed`` group of this process alone, joined as
+    torchrun's one rank (``setup_distributed`` in ``torchrun_env_of_one``:
+    NCCL on the card); yields ``make_mesh()``. The group is destroyed and
+    the environment restored after."""
+    from human_pose_tpu_torch.parallel import finalize_distributed, make_mesh, setup_distributed
+
+    with torchrun_env_of_one():
+        try:
+            setup_distributed(device_type)
+            yield make_mesh()
+        finally:
+            finalize_distributed()
 
 
 def mesh_step_cost(dev, smi: str) -> dict:
@@ -4483,17 +4511,12 @@ def start_world_one(yaml_path: str, roots: list, workdir: Path) -> dict:
     of one, the mesh, every collective of the steps) and "single" without.
     Returns the processes by name and their start time
     (``world_one_record`` waits for them)."""
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     here = str(Path(__file__).resolve().parent)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [here, os.environ.get("PYTHONPATH")]))}
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(var, None)
     runs = {"single": env, "world1": {**env, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
-                                      "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}}
+                                      "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}}
     argv = [sys.executable, "-m", "human_pose_tpu_torch.bin.train_keypoints", f"--config={yaml_path}",
             *roots, *DP_CLI_ARGV, *DP_DETERMINISTIC]
     procs, t0 = {}, time.perf_counter()
@@ -4623,6 +4646,373 @@ def dp_train_only(dev, smi: str) -> int:
     log(f"build: per kernel {_build.build_kernels(('refine_argmax', 'match_by_tag'))}")
     counted = make_counted(kernel_counters())
     print(json.dumps({"dp_train": dp_train_phase(dev, counted, smi)}), flush=True)
+    return 0
+
+
+# phase 16: distributed COCO evaluation and the last utilities: the
+# evaluator sharded over an NCCL group of one (torchrun's environment, in
+# this process and as a torchrun launch), the directory checkpoint backend
+# on W32's Adam state beside the file backend, the card-memory monitor and
+# the native RLE decode
+SHARDED_BATCH = 8
+SHARDED_TIMEOUT_S = 300
+CKPT_BATCH, CKPT_SIZE = 2, 256  # the step that gives W32's Adam its state
+RLE_HW, RLE_MASKS = (480, 640), 16
+
+
+def _eval_cli(workdir: Path, argv: list) -> Path:
+    """``bin.eval_keypoints.main(argv)`` in ``workdir`` (made here); its
+    output directory."""
+    from human_pose_tpu_torch.bin import eval_keypoints
+
+    workdir.mkdir(parents=True)
+    with contextlib.chdir(workdir):
+        return workdir / eval_keypoints.main(argv)
+
+
+def sharded_eval(dev, counted, smi: str, tmp: Path) -> dict:
+    """(1) the sharded COCO evaluation on phase 8's synthesized corpus (W32
+    from ``EVAL_YAML``, seeded weights, flip, 512), cuDNN deterministic
+    without autotuning: ``bin.eval_keypoints --sharded=true
+    --batch_size=8`` under ``torch.distributed.run --nproc_per_node=1``
+    (NCCL) as a process of its own, started first; meanwhile in this
+    process the same CLI without ``--sharded`` and with it under torchrun's
+    environment for one rank, each with the launch counters zeroed: one
+    launch of the dense refine and of the grouping a dispatched batch in
+    both; the three results files hold the same detections bit for bit
+    (the sharded runs' bytes equal; in image order, the one-process run's);
+    each kernel on the sharded path's last batch equal to its plain
+    version, its time and bound; then, the launch ended, img/s of
+    ``evaluate_dataset_batched`` at batch 8 without a mesh and through an
+    NCCL group of one, float32 and bfloat16, in turns."""
+    import torch
+
+    from human_pose_tpu_torch.configs import KeypointsConfig
+    from human_pose_tpu_torch.data import CocoKeypointsDataset
+    from human_pose_tpu_torch.inference import BatchedKeypointsEvaluator, evaluate_dataset_batched
+    from human_pose_tpu_torch.ops import cuda_decode, cuda_match
+    from human_pose_tpu_torch.parallel import gather_to_main
+    from human_pose_tpu_torch.utils import load_yaml, save_yaml
+
+    rng = np.random.default_rng(SEED + 8)  # phase 8's corpus
+    out = {"card": smi, "batch_size": SHARDED_BATCH, "corpus": make_eval_corpus(tmp / "coco", rng)}
+    cfg_dict = load_yaml(Path(__file__).resolve().parent / EVAL_YAML)
+    cfg_dict["dataloader"]["val_ds"]["root"] = str(tmp / "coco")
+    cfg_dict["inference"].update(ckpt_path=None, use_flip=True, input_size=SIZE)
+    yaml_path = tmp / "eval.yaml"
+    save_yaml(cfg_dict, yaml_path)
+    argv = [f"--config={yaml_path}", f"--batch_size={SHARDED_BATCH}", *DP_DETERMINISTIC]
+    here = str(Path(__file__).resolve().parent)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [here, os.environ.get("PYTHONPATH")]))}
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    (tmp / "torchrun").mkdir()
+    t_launch = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1", "--nnodes=1",
+         "--master_addr=127.0.0.1", f"--master_port={free_port()}",
+         "-m", "human_pose_tpu_torch.bin.eval_keypoints", *argv, "--sharded=true"],
+        cwd=tmp / "torchrun", env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic, cudnn.enabled)
+    try:
+        cudnn.benchmark, cudnn.deterministic = False, True
+        models = {}
+        for dtype, extra in (("float32", ["--trainer.accelerator=gpu"]), ("bfloat16", [])):
+            cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(str(yaml_path), extra))
+            models[dtype] = cfg.create_inference_model()
+        ds = CocoKeypointsDataset(str(tmp / "coco"), "val2017")
+        probe = BatchedKeypointsEvaluator(models["bfloat16"], batch_size=SHARDED_BATCH)
+        for i in range(len(ds)):
+            probe.add(ds.load_image(i), i, None)
+        probe.finish()
+        n = probe.n_batches
+        want = {"match_by_tag": n, "refine_argmax": n}
+        one_dir, launches_one = counted(lambda: _eval_cli(tmp / "one", argv),
+                                        "phase 16: eval CLI bs8, one process", want)
+
+        def sharded_cli():
+            with torchrun_env_of_one():
+                return _eval_cli(tmp / "sharded", [*argv, "--sharded=true"])
+
+        sharded_dir, launches = counted(sharded_cli, "phase 16: eval CLI bs8, --sharded=true under "
+                                        "torchrun's environment (NCCL, world size 1)", want)
+        if torch.distributed.is_initialized():
+            raise AssertionError("phase 16: the sharded CLI left its process group")
+        one = json.loads((one_dir / "val2017_results.json").read_text())
+        sharded_text = (sharded_dir / "val2017_results.json").read_text()
+        sharded = json.loads(sharded_text)
+        # the sharded run's records come in dataset order, the corpus's ids in
+        # file order: a stable sort by id puts the one-process run's there
+        if not sharded or sharded != sorted(one, key=lambda d: d["image_id"]):
+            raise AssertionError(f"phase 16: the sharded CLI's {len(sharded)} detections differ from "
+                                 f"the one-process CLI's {len(one)} in image order")
+        out.update(batches=n, launches=launches, launches_one_process=launches_one,
+                   detections=len(sharded), equal_in_image_order=True,
+                   same_order=sharded == one, ap_line=(sharded_dir / "coco_output.txt")
+                   .read_text().splitlines()[0])
+
+        # each kernel on the sharded path's last batch, against its plain version
+        with process_group_of_one() as mesh:
+            seen = record_kernel_inputs(lambda: evaluate_dataset_batched(
+                models["bfloat16"], ds, SHARDED_BATCH, mesh=mesh, progress=False))
+        hm, tg, prev, cnt = seen["refine_argmax"]
+        cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
+        refine_equal = torch.equal(cuda_decode.refine_argmax_batch(hm, tg, prev, cnt),
+                                   cuda_decode.refine_argmax_batch_plain(hm, tg, prev, cnt))
+        got = cuda_match.match_by_tag_batched(cand, det_thr, tag_thr, order, persons)
+        t0 = time.perf_counter()
+        plain = cuda_match.match_by_tag_batched_plain(cand[:MATCH_PLAIN_IMAGES].cpu(), det_thr,
+                                                      tag_thr, order, persons)
+        match_plain_ms = (time.perf_counter() - t0) * 1e3
+        match_equal = all(torch.equal(a[:MATCH_PLAIN_IMAGES].cpu(), b) for a, b in zip(got, plain))
+        if not (refine_equal and match_equal):
+            raise AssertionError(f"phase 16: kernel vs plain on the sharded path's inputs: refine "
+                                 f"{refine_equal}, grouping {match_equal}")
+        out["kernels"] = {
+            "refine_shape": f"B{hm.shape[0]} K{K} HW{hm.shape[2]} E{tg.shape[2]} P{prev.shape[1]}",
+            "refine_active_persons": int(cnt.sum()),
+            "refine_ms": cuda_ms(lambda: cuda_decode.refine_argmax_batch(hm, tg, prev, cnt), iters=20),
+            "refine_plain_ms": cuda_ms(lambda: cuda_decode.refine_argmax_batch_plain(hm, tg, prev, cnt),
+                                       iters=2),
+            "refine_bound_ms": refine_bound(hm, tg, prev, cnt)[0],
+            "match_shape": f"B{cand.shape[0]} K{K} M{cand.shape[2]} E{cand.shape[3] - 3} P{persons}",
+            "match_valid_rows": int((cand[..., 2] > det_thr).sum()),
+            "match_ms": cuda_ms(lambda: cuda_match.match_by_tag_batched(
+                cand, det_thr, tag_thr, order, persons), iters=20),
+            "match_plain_cpu_ms": match_plain_ms, "match_plain_images": MATCH_PLAIN_IMAGES,
+            "match_bound_ms": match_bound(cand, persons)[0]}
+
+        # the torchrun launch: its results file, group line and throughput
+        try:
+            log_text = proc.communicate(timeout=SHARDED_TIMEOUT_S)[0]
+        finally:
+            _stop({"torchrun": proc})
+        launch_s = time.perf_counter() - t_launch
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 16: the torchrun launch exited {proc.returncode}:\n{log_text[-3000:]}")
+        runs = list((tmp / "torchrun" / "evaluation_results").iterdir())
+        group_line = next((l for l in log_text.splitlines() if "initialized torch.distributed" in l), "")
+        rate_line = next((l for l in log_text.splitlines() if "batched eval:" in l), "")
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if len(runs) != 1 or f"({backend})" not in group_line or \
+                (runs[0] / "val2017_results.json").read_text() != sharded_text:
+            raise AssertionError(f"phase 16: torchrun launch: {len(runs)} output dirs, group line "
+                                 f"{group_line!r}, or its results differ from the in-process run's")
+        out["torchrun"] = {"seconds": launch_s, "results_bytes_equal": True,
+                           "group_line": group_line[group_line.index("initialized"):]
+                           .replace("\x1b[0m", "").strip(),
+                           "rate_line": rate_line[rate_line.index("batched eval:"):]
+                           .replace("\x1b[0m", "").strip()}
+        log(f"phase 16 sharded eval: {n} batches, launches {launches} == one process's; "
+            f"{len(sharded)} detections bit-equal (sharded in image order, the torchrun launch's "
+            f"bytes equal); torchrun: '{out['torchrun']['group_line']}', "
+            f"'{out['torchrun']['rate_line']}' ({launch_s:.1f}s)  [{smi}]")
+        log(f"phase 16 kernels on the sharded path's last batch (== plain): refine "
+            f"{out['kernels']['refine_ms']:.4f} ms ({out['kernels']['refine_shape']}, bound "
+            f"{out['kernels']['refine_bound_ms']:.4f}), grouping {out['kernels']['match_ms']:.4f} ms "
+            f"({out['kernels']['match_shape']}, {out['kernels']['match_valid_rows']} valid rows)  [{smi}]")
+
+        # img/s at batch 8, without a mesh and through an NCCL group of one
+        # (made once for both of its turns; its communicator set up by an
+        # untimed gather before them)
+        out["img_per_s"] = {}
+        for dtype, model in models.items():
+            evaluate_dataset_batched(model, ds, SHARDED_BATCH, progress=False)
+            rates = {"plain": [], "mesh": []}
+
+            def rate(mesh=None):
+                return len(ds) / host_ms(lambda: evaluate_dataset_batched(
+                    model, ds, SHARDED_BATCH, mesh=mesh, progress=False)) * 1e3
+
+            rates["plain"].append(rate())
+            with process_group_of_one() as mesh:
+                gather_to_main(mesh, None)
+                rates["mesh"] += [rate(mesh), rate(mesh)]
+            rates["plain"].append(rate())
+            out["img_per_s"][dtype] = rates
+            log(f"phase 16 eval {dtype} bs8 img/s in turns plain, group, group, plain: plain "
+                f"{rates['plain']}, NCCL group of one {rates['mesh']}  [{smi}]")
+    finally:
+        _stop({"torchrun": proc})
+        cudnn.benchmark, cudnn.deterministic, cudnn.enabled = saved
+    return out
+
+
+def checkpoint_dir_cost(dev, tmp: Path, smi: str) -> dict:
+    """(2) W32 from ``TRAIN_YAML`` with the yaml's Adam after one bfloat16
+    step (batch ``CKPT_BATCH`` at ``CKPT_SIZE``^2) on the card: saved by the
+    file backend (``save_checkpoint``; ``AsyncCheckpointWriter``: submit and
+    write) and by the directory backend (``checkpoint_orbax``: synchronous;
+    ``use_async``: submit and write, one more step taken before the write
+    is waited for), each's ms and MB; each restored into a fresh W32 state
+    on the card (ms, to a device sync), the model and Adam's state bit for
+    bit the state of the save."""
+    import torch
+
+    from human_pose_tpu_torch.configs import KeypointsConfig
+    from human_pose_tpu_torch.models import init_keypoints_weights_
+    from human_pose_tpu_torch.train import (
+        AsyncCheckpointWriter, TrainState, checkpoint, checkpoint_orbax, create_optimizer,
+        keypoints_train_step,
+    )
+
+    cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(
+        str(Path(__file__).resolve().parent / TRAIN_YAML), []))
+    opt_params = dict(cfg.module.optimizers["optim"]["params"])
+    lr = opt_params.pop("lr")
+
+    def fresh(seed):
+        model = init_keypoints_weights_(cfg.create_net(device=dev), torch.Generator().manual_seed(seed))
+        opt = create_optimizer(model.parameters(), cfg.module.optimizers["optim"]["name"], lr, **opt_params)
+        return TrainState.create(model, opt, dtype=torch.bfloat16, device=dev)
+
+    state = fresh(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    keypoints_train_step(state, train_batch(CKPT_BATCH, CKPT_SIZE, 10, gen, dev), lr)
+    torch.cuda.synchronize()
+    want_model = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    want_opt = {i: {k: v.clone() if torch.is_tensor(v) else v for k, v in s.items()}
+                for i, s in state.optimizer.state_dict()["state"].items()}
+
+    def size_mb(path: Path) -> float:
+        files = [path] if path.is_file() else [p for p in path.rglob("*") if p.is_file()]
+        return sum(p.stat().st_size for p in files) / 1e6
+
+    def timed(fn) -> tuple:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    out = {"card": smi, "params": sum(p.numel() for p in state.model.parameters()),
+           "adam_tensors": sum(len(s) for s in want_opt.values())}
+    _, out["file_ms"] = timed(lambda: checkpoint.save_checkpoint(tmp / "file.pt", state, 0))
+    writer = AsyncCheckpointWriter()
+    _, out["file_async_submit_ms"] = timed(lambda: writer.submit(tmp / "file_async.pt", state, 0))
+    _, wait_ms = timed(writer.wait)
+    out["file_async_write_ms"] = out["file_async_submit_ms"] + wait_ms
+    _, out["dir_ms"] = timed(lambda: checkpoint_orbax.save_checkpoint(tmp / "dir", state, 0))
+    fut, out["dir_async_submit_ms"] = timed(lambda: checkpoint_orbax.save_checkpoint(
+        tmp / "dir_async", state, 0, use_async=True))
+    keypoints_train_step(state, train_batch(CKPT_BATCH, CKPT_SIZE, 10, gen, dev), lr)  # the next step
+    _, wait_ms = timed(lambda: fut.result(timeout=300))
+    out["dir_async_write_ms"] = out["dir_async_submit_ms"] + wait_ms
+    out["file_mb"], out["dir_mb"] = size_mb(tmp / "file.pt"), size_mb(tmp / "dir")
+    out["dir_files"] = sorted(str(p.relative_to(tmp / "dir")) for p in (tmp / "dir").rglob("*") if p.is_file())
+
+    def restore(load):
+        other = fresh(SEED + 1)
+        _, ms = timed(lambda: load(other))
+        equal = all(torch.equal(v, want_model[k]) for k, v in other.model.state_dict().items()) and all(
+            torch.equal(v, want_opt[i][k]) if torch.is_tensor(v) else v == want_opt[i][k]
+            for i, s in other.optimizer.state_dict()["state"].items() for k, v in s.items())
+        return ms, equal and other.step == 1
+
+    restores = {
+        "file": lambda s: checkpoint.load_train_state(s, checkpoint.load_checkpoint(tmp / "file.pt")),
+        "file_async": lambda s: checkpoint.load_train_state(
+            s, checkpoint.load_checkpoint(tmp / "file_async.pt")),
+        "dir": lambda s: checkpoint_orbax.load_train_state(s, checkpoint_orbax.load_checkpoint(tmp / "dir")),
+        "dir_async": lambda s: checkpoint_orbax.load_train_state(
+            s, checkpoint_orbax.load_checkpoint(tmp / "dir_async"))}
+    for name, load in restores.items():
+        out[f"{name}_restore_ms"], equal = restore(load)
+        if not equal:
+            raise AssertionError(f"phase 16: {name} checkpoint restored W32's state differently")
+    log(f"phase 16 checkpoints, W32 ({out['params']} parameters) + Adam ({out['adam_tensors']} "
+        f"tensors): file {out['file_ms']:.0f} ms, {out['file_mb']:.1f} MB (async submit "
+        f"{out['file_async_submit_ms']:.0f}, write {out['file_async_write_ms']:.0f}), restore "
+        f"{out['file_restore_ms']:.0f} ms; directory {out['dir_ms']:.0f} ms, {out['dir_mb']:.1f} MB "
+        f"{out['dir_files']} (async submit {out['dir_async_submit_ms']:.0f}, write "
+        f"{out['dir_async_write_ms']:.0f}), restore {out['dir_restore_ms']:.0f} ms; every restore bit "
+        f"for bit the saved state, the async ones although a step followed the submit  [{smi}]")
+    return out
+
+
+def monitor_check(tmp: Path, smi: str) -> dict:
+    """(3) ``GpuInfoMonitor``: one sample, its in-use and peak GB equal to
+    ``memory_allocated``'s and ``max_memory_allocated``'s, its limit to
+    ``mem_get_info``'s total, its in-use within what ``mem_get_info`` says
+    the card uses; started, it writes its file."""
+    import re
+
+    import torch
+
+    from human_pose_tpu_torch.loggers import GpuInfoMonitor
+
+    mon = GpuInfoMonitor(str(tmp / "gpu.log"), interval_s=0.05)
+    line = mon.sample().splitlines()[1]
+    free, total = torch.cuda.mem_get_info(0)
+    allocated, peak = torch.cuda.memory_allocated(0), torch.cuda.max_memory_allocated(0)
+    m = re.fullmatch(r"  (.+) #0: ([\d.]+)/([\d.]+) GB \(peak ([\d.]+) GB\)", line)
+    if not m or m.group(1) != torch.cuda.get_device_name(0) or float(m.group(2)) != round(allocated / 1e9, 2) \
+            or float(m.group(3)) != round(total / 1e9, 2) or float(m.group(4)) != round(peak / 1e9, 2) \
+            or allocated > total - free:
+        raise AssertionError(f"phase 16: monitor line {line!r} against allocated {allocated}, peak "
+                             f"{peak}, mem_get_info ({free}, {total})")
+    mon.start()
+    time.sleep(0.3)
+    mon.stop()
+    if not (tmp / "gpu.log").is_file():
+        raise AssertionError("phase 16: the monitor wrote no file")
+    log(f"phase 16 monitor: '{line.strip()}' (mem_get_info: {(total - free) / 1e9:.2f} GB used of "
+        f"{total / 1e9:.2f})  [{smi}]")
+    return {"line": line.strip(), "mem_get_info_used_gb": (total - free) / 1e9, "total_gb": total / 1e9}
+
+
+def rle_check(rng) -> dict:
+    """(4) the native RLE decode against its NumPy loop on ``RLE_MASKS``
+    seeded run-length lists at ``RLE_HW`` (runs past h*w and an empty list
+    among them): equal bytes; host ms a mask of each."""
+    from human_pose_tpu_torch.data.rle import rle_to_mask, rle_to_mask_plain
+
+    h, w = RLE_HW
+    cases = [[]] + [[int(c) for c in rng.integers(0, h * w // int(rng.integers(4, 200)),
+                                                    int(rng.integers(1, 400)))] for _ in range(RLE_MASKS - 1)]
+    for counts in cases:
+        if rle_to_mask(counts, h, w).tobytes() != rle_to_mask_plain(counts, h, w).tobytes():
+            raise AssertionError(f"phase 16: native RLE decode differs from NumPy on {len(counts)} counts")
+    out = {"masks": len(cases), "hw": RLE_HW,
+           "native_ms": host_ms(lambda: [rle_to_mask(c, h, w) for c in cases]) / len(cases),
+           "numpy_ms": host_ms(lambda: [rle_to_mask_plain(c, h, w) for c in cases]) / len(cases)}
+    log(f"phase 16 RLE decode at {h}x{w}: native == NumPy on {len(cases)} masks; host ms a mask "
+        f"native {out['native_ms']:.3f}, NumPy {out['numpy_ms']:.3f}")
+    return out
+
+
+def sharded_eval_phase(dev, counted, smi: str) -> dict:
+    """Phase 16: distributed COCO evaluation (``sharded_eval``), the
+    directory checkpoint backend (``checkpoint_dir_cost``), the
+    card-memory monitor (``monitor_check``) and the native RLE decode
+    (``rle_check``). Raises on any miss; returns the phase's record."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "eval").mkdir()
+        (tmp / "ckpt").mkdir()
+        out["eval"] = sharded_eval(dev, counted, smi, tmp / "eval")
+        out["checkpoint"], _ = counted(lambda: checkpoint_dir_cost(dev, tmp / "ckpt", smi),
+                                       "phase 16 (checkpoints of W32's Adam state)", {})
+        out["monitor"] = monitor_check(tmp, smi)
+    out["rle"] = rle_check(np.random.default_rng(SEED + 16))
+    out["launches"] = out["eval"]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16 (distributed eval, checkpoint directories, monitor, RLE): {out['seconds']:.1f}s")
+    return out
+
+
+def sharded_eval_only(dev, smi: str) -> int:
+    """Phase 16 alone: build the dense refine and the grouping, then the
+    phase. Prints the phase's record as one JSON object last."""
+    from human_pose_tpu_torch.ops import _build
+
+    log(f"build: per kernel {_build.build_kernels(('refine_argmax', 'match_by_tag'))}")
+    counted = make_counted(kernel_counters())
+    print(json.dumps({"sharded_eval": sharded_eval_phase(dev, counted, smi)}), flush=True)
     return 0
 
 
@@ -4920,6 +5310,9 @@ def main() -> int:
     parser.add_argument("--dp-train-only", action="store_true",
                         help="build the decode's two kernels and run phase 15 (zoo and data-parallel "
                              "training) alone")
+    parser.add_argument("--sharded-eval-only", action="store_true",
+                        help="build the decode's two kernels and run phase 16 (distributed eval, "
+                             "checkpoint directories, the memory monitor, the RLE decode) alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -4979,6 +5372,8 @@ def main() -> int:
         return zoo_only(dev, smi)
     if args.dp_train_only:
         return dp_train_only(dev, smi)
+    if args.sharded_eval_only:
+        return sharded_eval_only(dev, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -5215,6 +5610,9 @@ def main() -> int:
     # 15. zoo and data-parallel training
     dp_rec = dp_train_phase(dev, counted, smi)
 
+    # 16. distributed eval, checkpoint directories, the monitor, the RLE decode
+    sharded_rec = sharded_eval_phase(dev, counted, smi)
+
     # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
     dense_in = record_kernel_inputs(decode_dense)
@@ -5229,7 +5627,8 @@ def main() -> int:
              "classification": cls_rec["launches"],
              "serve": serve_rec["launches"],
              "zoo": zoo_rec["launches"],
-             "zoo_train_val": dp_rec["launches"]}
+             "zoo_train_val": dp_rec["launches"],
+             "sharded_eval": sharded_rec["launches"]}
 
     def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
         return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
@@ -5256,7 +5655,8 @@ def main() -> int:
                   for key, r in infer_rec["e2_kernels"].items()},
         eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("refine")},
         zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("refine")},
-        zoo_train_val={k_: v for k_, v in dp_rec["cli"].items() if k_.startswith("refine")}))
+        zoo_train_val={k_: v for k_, v in dp_rec["cli"].items() if k_.startswith("refine")},
+        sharded_eval={k_: v for k_, v in sharded_rec["eval"]["kernels"].items() if k_.startswith("refine")}))
     cand, _, _, order, persons = main_in["match_by_tag"]
     # the plain grouping runs one image after another (~4 s an image on the
     # card): timed on the first MATCH_PLAIN_IMAGES images, the kernel too
@@ -5279,7 +5679,8 @@ def main() -> int:
                   for key, r in infer_rec["e2_kernels"].items()},
         eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("match")},
         zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("match")},
-        zoo_train_val={k_: v for k_, v in dp_rec["cli"].items() if k_.startswith("match")}))
+        zoo_train_val={k_: v for k_, v in dp_rec["cli"].items() if k_.startswith("match")},
+        sharded_eval={k_: v for k_, v in sharded_rec["eval"]["kernels"].items() if k_.startswith("match")}))
     kernels.append(row(
         "match_by_tag_per_image", "per_image", "exact joints and count; equal to match_by_tag",
         cuda_ms(lambda: cuda_match.match_by_tag_per_image(cand_s, DET_THR, TAG_THR, order_s, persons_s),
@@ -5358,6 +5759,7 @@ def main() -> int:
     print(json.dumps({"serve": serve_rec}), flush=True)
     print(json.dumps({"zoo": zoo_rec}), flush=True)
     print(json.dumps({"dp_train": dp_rec}), flush=True)
+    print(json.dumps({"sharded_eval": sharded_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -95,7 +95,8 @@ class TrainerConfig:
     sync_batchnorm: bool = False
     use_compile: bool = False
     # "flax" (the JAX package's single file) is one torch.save file here;
-    # "orbax" (a directory backend) is ROADMAP module 16 and refuses
+    # "orbax" a directory written by torch.distributed.checkpoint
+    # (train/checkpoint_orbax.py)
     ckpt_backend: str = "flax"
     # a torch.profiler trace of a few early training steps into this
     # directory (utils/profiling.py)
@@ -338,7 +339,7 @@ class BaseConfig:
 
     def create_trainer(self, logger: Loggers | None = None):
         """The ``Trainer`` from the ``trainer`` section with the default
-        callbacks; the config is logged to the run directory. The orbax
+        callbacks; the config is logged to the run directory. An unknown
         checkpoint backend refuses here, before any run starts."""
         from ..train.checkpoint import check_ckpt_backend
         from ..train.trainer import Trainer

@@ -1,5 +1,6 @@
 """COCO mask utilities without pycocotools (port of
-human_pose_tpu/data/rle.py, NumPy only; cv2 imported where it is used).
+human_pose_tpu/data/rle.py; cv2 imported where it is used; the RLE decode
+in the port's host library, ``data/native.py``).
 
 Implements the COCO RLE formats from the public spec:
 * compressed RLE strings (6-bit varint chunks, delta-coded after the first
@@ -42,7 +43,16 @@ def decode_rle_counts_string(s: str | bytes) -> list[int]:
 
 
 def rle_to_mask(counts: list[int], h: int, w: int) -> np.ndarray:
-    """Run lengths (column-major, starting with zeros) -> [h, w] uint8 mask."""
+    """Run lengths (column-major, starting with zeros) -> [h, w] uint8 mask,
+    by the native decode (``csrc/rle_decode.cpp``), as the JAX package's."""
+    from .native import rle_decode_native
+
+    return rle_decode_native(counts, h, w)
+
+
+def rle_to_mask_plain(counts: list[int], h: int, w: int) -> np.ndarray:
+    """The NumPy loop of ``rle_to_mask`` (its plain version; it differs
+    only on a negative count, which the native decode takes as empty)."""
     flat = np.zeros(h * w, np.uint8)
     pos = 0
     val = 0

@@ -16,10 +16,17 @@ decode with its grouping and refine kernels) but:
    bucket;
 4. copies only the decoded joints, scores and valid flags to the host (into
    pinned buffers, asynchronously on a card) and keeps up to two batches in
-   flight, so the host prepares the next batch while the card works.
+   flight, so the host prepares the next batch while the card works;
+5. with a data-parallel ``mesh`` (``parallel.Mesh``: one process a device)
+   evaluates the val split over several processes: each takes every
+   ``world_size``-th image (``shard``) and dispatches ``batch_size //
+   world_size`` of them at a time, so the global batch is ``batch_size`` as
+   in the JAX package and the host work of ``prepare_input`` is split
+   across the processes; ``finish`` gathers every image's record to rank 0.
 
 Convolutions, eval-mode BatchNorm, resizes and the decode are per-image, so
-the detections are the serial path's (tests/test_torch_port_eval.py).
+the detections are the serial path's (tests/test_torch_port_eval.py,
+tests/test_torch_port_sharded_eval.py).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 
 from ..data.affine import get_multi_scale_size
 from ..loggers.pylogger import log
+from ..parallel.mesh import gather_to_main
 from .models import InferenceKeypointsModel
 from .results import InferenceKeypointsResult
 
@@ -41,6 +49,7 @@ from .results import InferenceKeypointsResult
 class _Pending:
     """Host-side metadata for one image waiting in a bucket."""
 
+    index: int  # dataset index (the order of the gathered records)
     image_id: int
     annot: list | None
     center: tuple
@@ -99,9 +108,13 @@ class BatchedKeypointsEvaluator:
 
     ``max_pending`` caps the images buffered across partly filled buckets
     (default 4 batches); when it is hit the fullest bucket is dispatched
-    early as a padded partial batch. ``mesh`` (a data-parallel eval over
-    several cards) is not ported yet. ``n_batches`` counts the dispatched
-    batches, ``buckets`` the distinct bucket keys seen."""
+    early as a padded partial batch. ``mesh`` (``parallel.Mesh``) shards the
+    evaluation over its processes: ``batch_size`` is the global batch and
+    must be a multiple of the world size; each process adds the images of
+    its ``shard`` and dispatches ``local_batch_size`` at a time; the model
+    is used as it is (every process built it from the same weights, and
+    eval changes nothing in it). ``n_batches`` counts this process's
+    dispatched batches, ``buckets`` the distinct bucket keys seen."""
 
     def __init__(
         self,
@@ -126,18 +139,19 @@ class BatchedKeypointsEvaluator:
                 "inference.pipeline_devices is for the serial/serving path; batched eval "
                 "parallelizes over the data mesh (--sharded) instead — unset one of the two"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: a data-parallel eval over several cards comes with the port's "
-                "parallelism, ROADMAP module 14")
+        world = 1 if mesh is None else mesh.world_size
+        if batch_size % world:
+            raise ValueError(f"batch_size {batch_size} not divisible by the {world}-device mesh")
         self.model = model
         self.batch_size = batch_size
-        self.max_pending = 4 * batch_size if max_pending is None else max_pending
+        self.mesh = mesh
+        self.local_batch_size = batch_size // world
+        self.max_pending = 4 * self.local_batch_size if max_pending is None else max_pending
         self.compute_oks = compute_oks
         self._buckets: dict = {}
         self._in_flight: list = []
-        self._detections: list = []
-        self._oks_values: list = []
+        self._records: list = []  # (dataset index, detections, OKS or None) an image
+        self._n_added = 0
         self._n_images = 0
         self.n_batches = 0
         self.buckets: set = set()
@@ -167,7 +181,7 @@ class BatchedKeypointsEvaluator:
     def _dispatch(self, key: tuple) -> None:
         metas = self._buckets.pop(key)
         m = self.model
-        pad = self.batch_size - len(metas)
+        pad = self.local_batch_size - len(metas)
         scales = self._scales()
         hw = key[scales.index(1.0)]
 
@@ -215,16 +229,33 @@ class BatchedKeypointsEvaluator:
                     tag_thr=self.model.tag_thr,
                     limbs=self.model.limbs,
                 )
+                oks = None
                 if self.compute_oks and meta.annot is not None:
                     oks = image_oks(res)
-                    if oks >= 0:
-                        self._oks_values.append(oks)
-                self._detections.extend(res.to_coco_detections(meta.image_id))
+                self._records.append((meta.index, res.to_coco_detections(meta.image_id), oks))
                 self._n_images += 1
 
     # -- public API ---------------------------------------------------------
 
-    def add(self, image: np.ndarray, image_id: int, annot: list | None = None) -> None:
+    def shard(self, n: int) -> range:
+        """The dataset indices of ``range(n)`` this process evaluates: every
+        ``world_size``-th from its rank (all of them without a mesh)."""
+        if self.mesh is None:
+            return range(n)
+        return range(self.mesh.rank, n, self.mesh.world_size)
+
+    def add(self, image: np.ndarray, image_id: int, annot: list | None = None,
+            index: int | None = None) -> None:
+        """Queue one image. ``index`` is its dataset index, the order of
+        ``finish``'s records (default: the count of images added before);
+        under a mesh it is required and must be of this process's
+        ``shard``."""
+        if self.mesh is not None and (index is None or index % self.mesh.world_size != self.mesh.rank):
+            raise ValueError(f"index {index} is not of rank {self.mesh.rank}'s shard (every "
+                             f"{self.mesh.world_size}-th image from {self.mesh.rank})")
+        if index is None:
+            index = self._n_added
+        self._n_added += 1
         m = self.model
         scales = self._scales()
         min_scale = min(scales)
@@ -239,20 +270,32 @@ class BatchedKeypointsEvaluator:
         key = self._bucket_key(image.shape[:2])
         self.buckets.add(key)
         self._buckets.setdefault(key, []).append(
-            _Pending(image_id, annot, center, scale_wh, valid_hw, xs)
+            _Pending(index, image_id, annot, center, scale_wh, valid_hw, xs)
         )
-        if len(self._buckets[key]) == self.batch_size:
+        if len(self._buckets[key]) == self.local_batch_size:
             self._dispatch(key)
         elif sum(len(v) for v in self._buckets.values()) >= self.max_pending:
             fullest = max(self._buckets, key=lambda k: len(self._buckets[k]))
             self._dispatch(fullest)
 
     def finish(self) -> tuple[list[dict], list[float]]:
-        """Flush partial buckets and drain all in-flight batches."""
+        """Flush partial buckets and drain all in-flight batches; returns the
+        detections and the per-image OKS values. Without a mesh they are in
+        the order the batches were drained. Under a mesh every process's
+        records are gathered to rank 0, which returns them in dataset order;
+        the other ranks return empty lists."""
         for key in sorted(self._buckets, key=lambda k: -len(self._buckets[k])):
             self._dispatch(key)
         self._drain(keep=0)
-        return self._detections, self._oks_values
+        records = self._records
+        if self.mesh is not None:
+            gathered = gather_to_main(self.mesh, records)
+            if gathered is None:
+                return [], []
+            records = sorted((r for part in gathered for r in part), key=lambda r: r[0])
+        detections = [d for _, dets, _ in records for d in dets]
+        oks_values = [oks for _, _, oks in records if oks is not None and oks >= 0]
+        return detections, oks_values
 
 
 def evaluate_dataset_batched(
@@ -264,22 +307,27 @@ def evaluate_dataset_batched(
     progress: bool = True,
 ) -> list[dict]:
     """Batched counterpart of ``bin.eval_keypoints.evaluate_dataset``: the
-    same detections and per-image OKS logging, batched device work."""
+    same detections and per-image OKS logging, batched device work. Under
+    ``mesh`` each process reads and evaluates its shard of the images, and
+    rank 0 returns every image's detections in dataset order (the other
+    ranks an empty list)."""
     from tqdm.auto import tqdm
 
     runner = BatchedKeypointsEvaluator(model, batch_size=batch_size, mesh=mesh)
     n = len(ds) if limit <= 0 else min(limit, len(ds))
+    mine = runner.shard(n)
     t0 = time.perf_counter()
-    it = tqdm(range(n), desc=f"evaluating (batched bs{batch_size})") if progress else range(n)
+    it = tqdm(mine, desc=f"evaluating (batched bs{batch_size})") if progress else mine
     for idx in it:
         image = ds.load_image(idx)
         annot = ds.load_annot(idx)
         image_id = image_id_from_path(ds.images_filepaths[idx], fallback=idx)
-        runner.add(image, image_id, annot)
+        runner.add(image, image_id, annot, index=idx)
     detections, oks_values = runner.finish()
     dt = time.perf_counter() - t0
     if oks_values:
         log.info(f"mean image OKS over {len(oks_values)} images: {np.mean(oks_values):.4f}")
-    log.info(f"batched eval: {n} images in {dt:.1f}s ({n / dt:.1f} img/s), "
+    here = f"; {len(mine)} in this process" if mesh is not None else ""
+    log.info(f"batched eval: {n} images in {dt:.1f}s ({n / dt:.1f} img/s{here}), "
              f"{runner.n_batches} batches over {len(runner.buckets)} buckets")
     return detections

@@ -42,11 +42,13 @@ def load_inference_weights(path: str | Path) -> dict[str, torch.Tensor]:
     * a flax npz (flat ``params/...``/``batch_stats/...``; ``load_flax_npz``);
     * a reference ``.pt``: a bare state dict or the trainer-state layout
       ``{"module": {"model": state_dict, ...}, ...}``, prefixes stripped;
-      the port's own ``best.pt`` and ``last.pt`` are in that layout.
+      the port's own ``best.pt`` and ``last.pt`` are in that layout;
+    * a checkpoint directory of the port (``trainer.ckpt_backend: orbax``);
+    * a native JAX trainer checkpoint (a pickle around flax msgpack).
 
-    A native JAX trainer checkpoint (a pickle around flax msgpack) and an
-    orbax directory raise (``utils.weights.read_state_dict``): export the
-    JAX weights as a flat npz."""
+    A directory that orbax itself wrote raises
+    (``utils.weights.read_state_dict``): export those weights as a flat
+    npz."""
     sd = {k: v.detach().to(torch.float32) if v.is_floating_point() else v.detach()
           for k, v in read_state_dict(path).items()}
     if not sd:

@@ -1,5 +1,5 @@
 from .loggers import BaseLogger, FileTrackerLogger, Loggers, MlflowFileLogger, Status, TerminalLogger
-from .monitoring import SystemMetricsMonitor, collect_sample
+from .monitoring import GpuInfoMonitor, SystemMetricsMonitor, collect_sample
 from .pylogger import (
     add_file_handler,
     capture_warnings,
@@ -25,5 +25,6 @@ __all__ = [
     "MlflowFileLogger",
     "Status",
     "SystemMetricsMonitor",
+    "GpuInfoMonitor",
     "collect_sample",
 ]

@@ -3,18 +3,22 @@
 Counterpart of reference src/logger/monitoring/: a daemon-thread sampler of
 the host's CPU, memory, disk and network (psutil, as the JAX package; both
 machines have it) and the card's memory (``torch.cuda``), feeding a
-``SystemMonitoringStorage`` that callbacks render to plots. The
-``nvidia-smi`` monitor (the JAX package's ``TpuInfoMonitor``) is ROADMAP
-module 16.
+``SystemMonitoringStorage`` that callbacks render to plots; and
+``GpuInfoMonitor``, the JAX package's ``TpuInfoMonitor`` for the card (the
+reference's ``NvidiaSmiMonitor``).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import traceback
+from pathlib import Path
 
 import psutil
 import torch
+
+from .pylogger import log
 
 
 def collect_sample() -> dict:
@@ -55,6 +59,60 @@ class SystemMetricsMonitor:
                 self.storage.append(collect_sample())
             except Exception:
                 pass
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._loop, daemon=True)
+            self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=1.0)
+            self._thread = None
+
+
+class GpuInfoMonitor:
+    """Periodic device-memory dump to a log file, the JAX package's
+    ``TpuInfoMonitor`` for the card (reference
+    src/logger/monitoring/nvidia_smi.py:8-48): every ``interval_s`` seconds
+    ``filepath`` is rewritten with a timestamp line and, a card, its
+    memory in use by tensors, its total and the peak in use
+    (``torch.cuda.memory_allocated``, ``get_device_properties(i).total_memory``,
+    which ``mem_get_info`` reports too, ``max_memory_allocated``) in
+    ``TpuInfoMonitor``'s format. Constructing it without a card raises: it
+    never writes numbers it did not read."""
+
+    def __init__(self, filepath: str, interval_s: float = 5.0):
+        if not torch.cuda.is_available():
+            raise RuntimeError("GpuInfoMonitor reads the cards' memory, and "
+                               "torch.cuda.is_available() is False")
+        self.filepath = filepath
+        self.interval_s = interval_s
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def sample(self) -> str:
+        """One dump: the timestamp line and a line a card."""
+        lines = [time.strftime("%Y-%m-%d %H:%M:%S")]
+        for i in range(torch.cuda.device_count()):
+            in_use = torch.cuda.memory_allocated(i) / 1e9
+            peak = torch.cuda.max_memory_allocated(i) / 1e9
+            limit = torch.cuda.get_device_properties(i).total_memory / 1e9
+            lines.append(f"  {torch.cuda.get_device_name(i)} #{i}: {in_use:.2f}/{limit:.2f} GB"
+                         f" (peak {peak:.2f} GB)")
+        return "\n".join(lines) + "\n"
+
+    def _loop(self) -> None:
+        Path(self.filepath).parent.mkdir(parents=True, exist_ok=True)
+        while not self._stop.wait(self.interval_s):
+            try:
+                text = self.sample()
+            except RuntimeError:
+                log.warning(f"GpuInfoMonitor: no sample:\n{traceback.format_exc()}")
+                continue
+            with open(self.filepath, "w") as f:
+                f.write(text)
 
     def start(self) -> None:
         if self._thread is None:

@@ -14,7 +14,8 @@ assignment against the plain version, and the fused front end's lerps are
 bit-equal to the plain version only unfused. The convolution kernel runs
 its products on the tensor cores.
 
-Host libraries (``csrc/<name>.cpp``: the data pipeline's heatmap splat) are
+Host libraries (``csrc/<name>.cpp``: the data pipeline's heatmap splat and
+RLE decode) are
 built the same way with the host C++ compiler (``load_host_library``), so
 they build and run wherever the port does, the CPU included.
 """
@@ -58,6 +59,7 @@ SIGNATURES = {
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 HOST_SIGNATURES = {
     "heatmap_splat": {"splat_heatmaps": [_P, _I, _I, _I, ctypes.c_double, _P]},
+    "rle_decode": {"rle_decode": [_P, _I, _I, _I, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

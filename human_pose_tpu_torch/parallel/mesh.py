@@ -18,8 +18,10 @@ holds a ``Mesh`` (``train/steps.py``):
 * the step's metrics are averaged before the host reads them.
 
 ``DistributedDataParallel`` is not used: its ``broadcast_buffers`` copies
-rank 0's running statistics over the others'. Spatial, tensor and pipeline
-parallelism are not ported (ROADMAP 14c).
+rank 0's running statistics over the others'. The sharded COCO evaluation
+(``inference/batched_eval.py``) gathers its per-image records to rank 0
+(``gather_to_main``). Spatial, tensor and pipeline parallelism are not
+ported (ROADMAP 14c).
 """
 
 from __future__ import annotations
@@ -76,6 +78,15 @@ def barrier(name: str = "barrier") -> None:
     package's label and only names the point."""
     if dist.is_initialized():
         dist.barrier()
+
+
+def gather_to_main(mesh: Mesh, obj: Any) -> list | None:
+    """Every process's picklable ``obj`` on rank 0, in rank order
+    (``dist.gather_object``: under NCCL through the current card); None on
+    the other ranks."""
+    out = [None] * mesh.world_size if mesh.rank == 0 else None
+    dist.gather_object(obj, out, dst=0, group=mesh.group)
+    return out
 
 
 def all_reduce_mean_(mesh: Mesh, tensors: list) -> None:

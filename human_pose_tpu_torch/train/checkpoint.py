@@ -17,7 +17,8 @@ reads it with ``torch.load(weights_only=True)``.
 
 ``load_train_state`` restores the model, the optimizer state and the step
 into an existing state, on its device. ``load_params_partial`` is the
-name-intersection load of pretrained weights.
+name-intersection load of pretrained weights. The directory backend
+(``trainer.ckpt_backend: orbax``) is ``train/checkpoint_orbax.py``.
 """
 
 from __future__ import annotations
@@ -33,13 +34,15 @@ from ..utils.weights import read_state_dict
 from .state import TrainState
 
 
+CKPT_BACKENDS = ("flax", "orbax")
+
+
 def check_ckpt_backend(name: str) -> None:
-    """The JAX package's "flax" backend (one file) is one ``torch.save``
-    file here; its "orbax" directory backend is not ported yet."""
-    if name != "flax":
-        raise NotImplementedError(
-            f"trainer.ckpt_backend {name!r}: the port writes one torch.save file (ckpt_backend "
-            "'flax'); the orbax directory backend is ROADMAP module 16")
+    """The JAX package's backends: "flax" (one file) is one ``torch.save``
+    file here, "orbax" a directory (``train/checkpoint_orbax.py``)."""
+    if name not in CKPT_BACKENDS:
+        raise ValueError(f"trainer.ckpt_backend {name!r}: 'flax' (one torch.save file) or "
+                         "'orbax' (a directory of torch.distributed.checkpoint)")
 
 
 def _map_tensors(obj, fn):
@@ -155,8 +158,9 @@ def load_train_state(state: TrainState, ckpt: dict) -> TrainState:
 def load_params_partial(model: torch.nn.Module, ckpt_path: str | Path) -> int:
     """Name-intersection partial load of pretrained weights (reference
     src/base/model.py:104-129): each parameter of ``model`` whose name is in
-    the checkpoint with the same shape is copied from it, the rest keep their
-    fresh initialization. Parameters only, as the JAX package's (its
+    the checkpoint (any format ``read_state_dict`` reads, a checkpoint
+    directory too) with the same shape is copied from it, the rest keep
+    their fresh initialization. Parameters only, as the JAX package's (its
     ``params``): BatchNorm running statistics keep theirs. Returns the count
     of tensors loaded."""
     src = read_state_dict(ckpt_path)

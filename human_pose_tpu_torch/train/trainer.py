@@ -3,14 +3,15 @@
 Counterpart of reference src/base/trainer.py (Trainer.fit / single_epoch /
 evaluate / sanity_check / checkpoint orchestration): epochs, meters, metric
 storage, callbacks, checkpoints (``train/checkpoint.py``, saved on a
-background thread), ``limit_batches`` debug mode and failure finalization.
+background thread; or directories, ``train/checkpoint_orbax.py``),
+``limit_batches`` debug mode and failure finalization.
 The steps are ``KeypointsModule``'s; the train loader runs through
 ``DevicePrefetcher``. Over several processes (``parallel``) each trains on
 its shard; only the main process shows progress bars and logs, under a
 data-parallel mesh the validation meters are combined over its processes
 after an evaluate, and
-the main process writes each checkpoint while the others wait at a
-barrier, as the JAX package.
+the main process writes each checkpoint file while the others wait at a
+barrier (every process takes part in a directory's), as the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..loggers.pylogger import log
 from ..parallel.mesh import barrier
 from ..utils.profiling import StepWindowProfiler
 from ..utils.utils import is_main_process, process_count
+from . import checkpoint_orbax
 from .callbacks import Callbacks
 from .checkpoint import (
     AsyncCheckpointWriter, check_ckpt_backend, load_checkpoint, load_params_partial, load_train_state,
@@ -267,10 +269,11 @@ class Trainer:
     # -- checkpointing ---------------------------------------------------------
     def save_checkpoint(self, path: str | Path) -> None:
         """``path`` with the module's state and schedulers, the loader's
-        state, the storage, the callbacks' and the logger's: on the
-        background writer when ``async_ckpt`` is set (one process), else
-        here by the main process while every process waits at a barrier
-        until the file exists."""
+        state, the storage, the callbacks' and the logger's. A directory
+        (``ckpt_backend`` "orbax") is written by every process here, as the
+        JAX package's; a file on the background writer when ``async_ckpt``
+        is set (one process), else here by the main process. Every process
+        then waits at a barrier until the checkpoint exists."""
         kwargs = dict(
             lr_schedulers=self.module.schedulers_state_dict(),
             datamodule_state=self.datamodule.state_dict() if self.datamodule else {},
@@ -278,20 +281,30 @@ class Trainer:
             callbacks_state=self.callbacks.state_dict(),
             logger_state=self.logger.state_dict(),
         )
-        if self.async_ckpt and process_count() == 1:
+        if self.ckpt_backend == "orbax":
+            checkpoint_orbax.save_checkpoint(path, self.module.state, self.current_epoch, **kwargs)
+        elif self.async_ckpt and process_count() == 1:
             self._ckpt_writer.submit(path, self.module.state, self.current_epoch, **kwargs)
             return
-        if is_main_process():
+        elif is_main_process():
             save_checkpoint(path, self.module.state, self.current_epoch, **kwargs)
         barrier("save_checkpoint")
 
     def load_checkpoint(self, path: str | Path) -> int:
-        """Restore a port checkpoint into the module, the loader, the
-        storage, the callbacks and the logger; returns the epoch to start."""
+        """Restore a port checkpoint, a file or a directory (told apart
+        whatever the backend, as the JAX package), into the module, the
+        loader, the storage, the callbacks and the logger; returns the epoch
+        to start."""
         self._ckpt_writer.wait()  # never read a file mid-background-write
-        ckpt = load_checkpoint(path)
-        load_train_state(self.module.state, ckpt)
-        self.module.load_schedulers_state_dict(ckpt["module"].get("lr_schedulers") or {})
+        if checkpoint_orbax.is_orbax_checkpoint(path):
+            ckpt = checkpoint_orbax.load_checkpoint(path)
+            checkpoint_orbax.load_train_state(self.module.state, ckpt)
+            schedulers = ckpt.get("lr_schedulers")
+        else:
+            ckpt = load_checkpoint(path)
+            load_train_state(self.module.state, ckpt)
+            schedulers = ckpt["module"].get("lr_schedulers")
+        self.module.load_schedulers_state_dict(schedulers or {})
         if self.datamodule is not None:
             self.datamodule.load_state_dict(ckpt.get("datamodule") or {})
         if ckpt.get("metrics"):

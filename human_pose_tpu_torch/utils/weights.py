@@ -49,10 +49,6 @@ __all__ = [
     "read_state_dict",
 ]
 
-# an orbax checkpoint directory holds this file (the JAX package's
-# checkpoint_orbax.py)
-ORBAX_HOST_STATE = "host_state.pkl"
-
 # name prefixes the reference strips when loading (utils/model.py:163-171):
 # DDP wrap ("module."), torch.compile ("_orig_mod."), model wrapper ("net.")
 _PREFIXES = ("module.", "_orig_mod.", "net.")
@@ -454,41 +450,34 @@ def load_flax_npz(path: str | Path) -> dict[str, np.ndarray]:
     }
 
 
-def _refuse_jax_formats(path: Path) -> None:
-    import zipfile
-
-    if path.is_dir():
-        if (path / ORBAX_HOST_STATE).exists():
-            raise ValueError(
-                f"{path} is an orbax checkpoint directory; reading it comes with the port's "
-                "checkpoint_orbax, ROADMAP module 16")
-        raise ValueError(f"{path} is a directory, not a checkpoint file")
-    if not zipfile.is_zipfile(path):
-        with open(path, "rb") as f:
-            head = f.read(2)
-        if head[:1] == b"\x80":  # a pickle's protocol opcode
-            raise ValueError(
-                f"{path} is a native JAX trainer checkpoint (a pickle around flax msgpack); the "
-                "port reads neither msgpack nor flax: export its weights as a flat npz with the JAX "
-                "package's utils/export.py::export_weights_npz, the layout the port's "
-                "human_pose_tpu_torch/utils/export.py::export_weights_npz writes too (the port's "
-                "reader of such checkpoints is ROADMAP module 16)")
-        raise ValueError(f"unrecognized checkpoint format at {path}")
-
-
 def read_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
     """The tensors of a reference-layout state dict, on the CPU, from a port
-    checkpoint, a reference ``.pt`` (a bare state dict or the trainer-state
-    layout ``{"module": {"model": state_dict, ...}, ...}``, prefixes
-    stripped) or a flax npz (``load_flax_npz``). An orbax directory or a
-    native JAX trainer checkpoint (a pickle around flax msgpack) raises."""
+    checkpoint (a file, or a directory of ``trainer.ckpt_backend: orbax``),
+    a reference ``.pt`` (a bare state dict or the trainer-state layout
+    ``{"module": {"model": state_dict, ...}, ...}``, prefixes stripped), a
+    flax npz (``load_flax_npz``) or a native JAX trainer checkpoint (a
+    pickle around flax msgpack, ``utils/flax_msgpack.py``; its float arrays
+    as float32, as the npz's). A directory that orbax itself wrote raises,
+    naming the npz exporter."""
     import pickle
     import zipfile
 
     import torch
 
     path = Path(path)
-    _refuse_jax_formats(path)
+    if path.is_dir():
+        from ..train.checkpoint_orbax import read_model_state_dict
+
+        return read_model_state_dict(path)
+    if not zipfile.is_zipfile(path):
+        with open(path, "rb") as f:
+            head = f.read(1)
+        if head != b"\x80":  # a pickle's protocol opcode
+            raise ValueError(f"unrecognized checkpoint format at {path}")
+        from .flax_msgpack import load_jax_trainer_checkpoint
+
+        return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                for k, v in variables_to_torch(load_jax_trainer_checkpoint(path)).items()}
     with zipfile.ZipFile(path) as z:
         is_npz = all(name.endswith(".npy") for name in z.namelist())
     if is_npz:

@@ -1601,3 +1601,104 @@ def test_ae_hourglass_make_results_launches_each_kernel_once(dev):
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
     results = module.make_results(batch, outputs)
     assert len(results) == 2 and all(np.isfinite(r.kpts_coords).all() for r in results)
+
+
+def test_sharded_evaluator_nccl_group_of_one_equals_one_process(fixture_eval, dev):
+    """``BatchedKeypointsEvaluator(mesh=...)`` in an NCCL process group of
+    one (``chip_smoke.process_group_of_one``), each image added with its
+    dataset index and the records gathered through NCCL: the detections
+    equal the one-process evaluator's image by image, bit for bit (cuDNN
+    deterministic, no autotuning), in dataset order, with as many launches
+    of the dense refine and the grouping (one a batch)."""
+    from human_pose_tpu_torch.inference import BatchedKeypointsEvaluator, image_id_from_path
+
+    import chip_smoke
+
+    ds, model = fixture_eval
+    im = model(dev)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        refine_argmax_batch.launches = match_by_tag_batched.launches = 0
+        one, one_dets = _batched(im, ds, 4)
+        one_launches = (refine_argmax_batch.launches, match_by_tag_batched.launches)
+        with chip_smoke.process_group_of_one() as mesh:
+            refine_argmax_batch.launches = match_by_tag_batched.launches = 0
+            ev = BatchedKeypointsEvaluator(im, batch_size=4, mesh=mesh)
+            for i in ev.shard(len(ds)):
+                ev.add(ds.load_image(i), image_id_from_path(ds.images_filepaths[i], i),
+                       ds.load_annot(i), index=i)
+            dets, oks = ev.finish()
+            launches = (refine_argmax_batch.launches, match_by_tag_batched.launches)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    assert launches == one_launches == (one.n_batches, one.n_batches) and ev.n_batches == one.n_batches
+    ids = [d["image_id"] for d in dets]
+    assert ids == sorted(ids) and len(set(ids)) == len(ds)
+
+    def by_image(d):
+        out = {}
+        for x in d:
+            out.setdefault(x["image_id"], []).append(x)
+        return out
+
+    assert by_image(dets) == by_image(one_dets) and len(oks) == len(ds)
+
+
+def test_checkpoint_directory_on_card(dev, tmp_path):
+    """The directory backend (``train/checkpoint_orbax.py``) on the card: a
+    state after a step saved synchronously loads back into a card module
+    and a CPU module bit for bit; a ``use_async`` save holds the state of
+    its call although two more steps updated it in place before the write
+    was waited for."""
+    from human_pose_tpu_torch.models import HigherHRNet
+    from human_pose_tpu_torch.train import KeypointsModule, checkpoint_orbax
+
+    module = KeypointsModule.create(HigherHRNet(**_REDUCED, device=dev), seed=2)
+    module.training_step(_host_batch(5, compact=True, n=4, size=128))
+    model_sd, opt_state = _clone_state(module)
+    checkpoint_orbax.save_checkpoint(tmp_path / "sync", module.state, epoch=3)
+    fut = checkpoint_orbax.save_checkpoint(tmp_path / "async", module.state, epoch=3, use_async=True)
+    module.training_step(_host_batch(6, compact=True, n=4, size=128))
+    module.training_step(_host_batch(7, compact=True, n=4, size=128))
+    fut.result(timeout=120)
+    for name in ("sync", "async"):
+        for device in (dev, "cpu"):
+            other = KeypointsModule.create(HigherHRNet(**_REDUCED, device=device), seed=9)
+            checkpoint_orbax.load_train_state(other.state,
+                                              checkpoint_orbax.load_checkpoint(tmp_path / name))
+            assert other.state.step == 1
+            for k, v in other.model.state_dict().items():
+                assert torch.equal(v.cpu(), model_sd[k].cpu()), (name, device, k)
+            got = other.state.optimizer.state_dict()["state"]
+            for i, s in opt_state.items():
+                for k, v in s.items():
+                    assert torch.equal(got[i][k].cpu(), v.cpu()) if torch.is_tensor(v) else got[i][k] == v
+
+
+def test_gpu_info_monitor_on_card(dev, tmp_path):
+    """``GpuInfoMonitor``'s sample: a line for the card in
+    ``TpuInfoMonitor``'s format whose in-use and peak GB are
+    ``memory_allocated``'s and ``max_memory_allocated``'s and whose limit
+    is ``mem_get_info``'s total; started, it writes its file."""
+    import re
+    import time
+
+    from human_pose_tpu_torch.loggers import GpuInfoMonitor
+
+    x = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)  # 0.27 GB held
+    mon = GpuInfoMonitor(str(tmp_path / "gpu.log"), interval_s=0.05)
+    lines = mon.sample().splitlines()
+    assert len(lines) == 1 + torch.cuda.device_count()
+    m = re.fullmatch(r"  (.+) #0: ([\d.]+)/([\d.]+) GB \(peak ([\d.]+) GB\)", lines[1])
+    assert m and m.group(1) == torch.cuda.get_device_name(0), lines[1]
+    in_use, limit, peak = (float(m.group(i)) for i in (2, 3, 4))
+    assert in_use == round(torch.cuda.memory_allocated(0) / 1e9, 2) and in_use >= 0.26
+    assert peak == round(torch.cuda.max_memory_allocated(0) / 1e9, 2)
+    assert limit == round(torch.cuda.mem_get_info(0)[1] / 1e9, 2)
+    mon.start()
+    time.sleep(0.5)
+    mon.stop()
+    assert (tmp_path / "gpu.log").read_text().splitlines()[1] == lines[1]
+    del x

@@ -177,6 +177,46 @@ def test_native_splat_refusals():
             splat_heatmaps_native(joints, size, sigma)
 
 
+def _seeded_counts(rs, h: int, w: int) -> list:
+    """Seeded run lengths for an h x w mask: up to 12 runs of up to a third
+    of the mask (their sum often passes h*w), or none."""
+    return [int(c) for c in rs.randint(0, max(1, h * w // 3 + 3), rs.randint(0, 13))]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_native_rle_decode_matches_numpy_and_jax(seed):
+    """``rle_to_mask`` (the native decode, ``csrc/rle_decode.cpp``), its
+    NumPy loop ``rle_to_mask_plain`` and the JAX package's ``rle_to_mask``
+    (its native extension) give the same bytes on seeded counts, with runs
+    past h*w, empty count lists and empty masks among them; with negative
+    counts (empty runs in the C++ of both packages, where the NumPy loop
+    steps back) the native decode equals the JAX package's native one."""
+    from human_pose_tpu.data.rle import rle_to_mask as jax_rle_to_mask
+    from human_pose_tpu_torch.data.rle import rle_to_mask, rle_to_mask_plain
+
+    assert jax_native.HAVE_NATIVE, "the JAX package's extension is built in this checkout"
+    rs = np.random.RandomState(seed)
+    cases = [([], 5, 7), ([3], 0, 4), ([0, 100], 4, 5), ([35], 5, 7), ([2, 3, 40, 1], 5, 7)]
+    cases += [(_seeded_counts(rs, h, w), h, w) for h, w in rs.randint(0, 24, (50, 2))]
+    for counts, h, w in cases:
+        got = rle_to_mask(counts, h, w)
+        assert got.dtype == np.uint8 and got.shape == (h, w)
+        assert got.tobytes() == rle_to_mask_plain(counts, h, w).tobytes() \
+            == jax_rle_to_mask(counts, h, w).tobytes(), (counts, h, w)
+    for h, w in rs.randint(1, 16, (20, 2)):
+        counts = [int(c) for c in rs.randint(-4, h * w // 2 + 2, rs.randint(1, 10))]
+        assert rle_to_mask(counts, h, w).tobytes() == \
+            jax_native.rle_decode_native(counts, h, w).tobytes(), (counts, h, w)
+
+
+def test_native_rle_decode_refusals():
+    from human_pose_tpu_torch.data.native import rle_decode_native
+
+    for counts, h, w in (([[1, 2]], 3, 3), ([1], -1, 3), ([1], 3, -2)):
+        with pytest.raises(ValueError):
+            rle_decode_native(counts, h, w)
+
+
 def test_joints_generator_matches_jax():
     """Float joints off the map, with vis 0, truncated to integers, empty
     persons dropped and more persons than the cap: equal arrays."""

@@ -478,17 +478,22 @@ def test_load_params_partial(tmp_path, fmt):
 
 
 def test_load_params_partial_refuses_jax_formats(tmp_path):
-    """An orbax directory (ROADMAP module 16) and a native JAX trainer
-    checkpoint (a pickle around flax msgpack: the npz export) refuse."""
+    """A directory that orbax itself wrote (the JAX package's
+    ``checkpoint_orbax``: ``host_state.pkl`` without the port's
+    ``torch.distributed.checkpoint`` metadata) refuses, naming the npz
+    exporter; a native JAX trainer checkpoint (a pickle around flax msgpack)
+    whose module holds no params refuses. The port's directories and JAX
+    trainer checkpoints with params load
+    (tests/test_torch_port_checkpoint_dir.py)."""
     target = HigherHRNet(num_kpts=K, C=8, device="cpu", **SHALLOW)
     orbax = tmp_path / "last.pt"
     orbax.mkdir()
     (orbax / "host_state.pkl").write_bytes(b"")
-    with pytest.raises(ValueError, match="orbax.*module 16"):
+    with pytest.raises(ValueError, match="orbax.*npz"):
         load_params_partial(target, orbax)
     with open(tmp_path / "jax.ckpt", "wb") as f:
         pickle.dump({"module": b"\x81\xa4step\x00", "epoch": 1}, f)
-    with pytest.raises(ValueError, match="npz"):
+    with pytest.raises(ValueError, match="no params"):
         load_params_partial(target, tmp_path / "jax.ckpt")
 
 

@@ -341,14 +341,16 @@ def test_deterministic_and_cudnn_section():
 
 
 def test_config_refusals():
-    """The orbax backend (ROADMAP 16), an unknown architecture and the
-    pipeline-parallel inference model (14c) refuse. The data-parallel
-    pieces do not: one process has no mesh, and two BatchNorm groups give
-    the per-group BatchNorm (tests/test_torch_port_parallel.py)."""
+    """An unknown checkpoint backend (the two of the JAX package, "flax" and
+    "orbax", are ported: tests/test_torch_port_checkpoint_dir.py), an
+    unknown architecture and the pipeline-parallel inference model (14c)
+    refuse. The data-parallel pieces do not: one process has no mesh, and
+    two BatchNorm groups give the per-group BatchNorm
+    (tests/test_torch_port_parallel.py)."""
     cfg = KeypointsConfig.from_dict({"trainer": {"accelerator": "cpu"}})
-    orbax = KeypointsConfig.from_dict({"trainer": {"accelerator": "cpu", "ckpt_backend": "orbax"}})
-    with pytest.raises(NotImplementedError, match="module 16"):
-        orbax.create_trainer()
+    other = KeypointsConfig.from_dict({"trainer": {"accelerator": "cpu", "ckpt_backend": "npz"}})
+    with pytest.raises(ValueError, match="ckpt_backend 'npz'"):
+        other.create_trainer()
     assert cfg.make_mesh() is None
     groups = KeypointsConfig.from_dict({"trainer": {"accelerator": "cpu"},
                                         "net": {"params": dict(C=8, **TINY)}}).create_net(bn_groups=2)
@@ -471,8 +473,13 @@ def test_decode_masked_per_image_equals_single(tiny_net):
 def test_batched_refusals(tiny_net):
     with pytest.raises(ValueError, match="must include 1.0"):
         BatchedKeypointsEvaluator(_model(tiny_net, scales=(0.5, 2.0)), batch_size=2)
-    with pytest.raises(NotImplementedError, match="module 14"):
-        BatchedKeypointsEvaluator(_model(tiny_net), batch_size=2, mesh=object())
+    from human_pose_tpu_torch.parallel import Mesh
+
+    # a mesh shards the evaluation (tests/test_torch_port_sharded_eval.py);
+    # it refuses a global batch its world size does not divide, as JAX's
+    with pytest.raises(ValueError, match="batch_size 2 not divisible by the 3-device mesh"):
+        BatchedKeypointsEvaluator(_model(tiny_net), batch_size=2,
+                                  mesh=Mesh(rank=0, world_size=3, device=torch.device("cpu")))
     im = _model(tiny_net)
     im.pipeline_devices = 2
     with pytest.raises(ValueError, match="pipeline_devices"):
@@ -497,10 +504,12 @@ inference: {{input_size: 64, ckpt_path: null}}
 
 
 def test_eval_cli_refuses_sharded(tmp_path):
+    """``--sharded=true`` runs (tests/test_torch_port_sharded_eval.py) but,
+    as JAX's CLI, refuses ``--batch_size<=1``, before it reads the config."""
     from human_pose_tpu_torch.bin.eval_keypoints import main
 
-    with pytest.raises(NotImplementedError, match="module 14"):
-        main(["--config=unused.yaml", "--batch_size=8", "--sharded=true"])
+    with pytest.raises(SystemExit, match="requires --batch_size>1"):
+        main(["--config=unused.yaml", "--sharded=true"])
 
 
 def test_inference_cli_writes_jax_plot_names(tmp_path, monkeypatch):

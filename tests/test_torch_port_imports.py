@@ -13,7 +13,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "human_pose_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "human_pose_tpu", "tests")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "human_pose_tpu", "tests")
 
 
 def _imported_modules(path: Path) -> set:
@@ -44,10 +44,12 @@ def test_package_imports_with_jax_blocked():
     the inference and eval paths, the CLIs and training (its engine and
     CLI) too, the classification CLIs, config and dataset, serving and
     export (their CLIs, the flag parser, model info), the model zoo (its
-    nets, the SPPE decode, MPII and PCKh), and data parallelism."""
+    nets, the SPPE decode, MPII and PCKh), data parallelism, the directory
+    checkpoint backend and the reader of JAX trainer checkpoints (with
+    orbax and msgpack unimportable too)."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'human_pose_tpu'): sys.modules[m] = None\n"
+        "for m in ('jax', 'flax', 'human_pose_tpu', 'orbax', 'msgpack'): sys.modules[m] = None\n"
         "import human_pose_tpu_torch, human_pose_tpu_torch.models, human_pose_tpu_torch.ops\n"
         "import human_pose_tpu_torch.utils, human_pose_tpu_torch.ops._build, chip_smoke\n"
         "import human_pose_tpu_torch.inference, human_pose_tpu_torch.data\n"
@@ -68,6 +70,7 @@ def test_package_imports_with_jax_blocked():
         "import human_pose_tpu_torch.ops.sppe, human_pose_tpu_torch.data.mpii\n"
         "import human_pose_tpu_torch.metrics.pckh\n"
         "import human_pose_tpu_torch.parallel, human_pose_tpu_torch.parallel.distributed\n"
+        "import human_pose_tpu_torch.train.checkpoint_orbax, human_pose_tpu_torch.utils.flax_msgpack\n"
         "print('ok')\n"
     )
     res = _run(code, ROOT)

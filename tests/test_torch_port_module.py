@@ -159,8 +159,9 @@ def test_create_matches_jax_schedulers(case):
 
 def test_module_refusals():
     """A mesh whose device is not the model's raises (data parallelism is
-    tests/test_torch_port_parallel.py's); the orbax backend refuses,
-    naming ROADMAP module 16."""
+    tests/test_torch_port_parallel.py's); an unknown checkpoint backend
+    refuses (the directory backend "orbax" is ported,
+    tests/test_torch_port_checkpoint_dir.py)."""
     from human_pose_tpu_torch.parallel import Mesh
 
     net = HigherHRNet(num_kpts=K, C=8, device="cpu", **SHALLOW)
@@ -169,8 +170,9 @@ def test_module_refusals():
         KeypointsModule.create(net, mesh=mesh)
     with pytest.raises(ValueError, match="mesh's device"):
         ClassificationModule.create(net, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="module 16"):
-        Trainer(None, [], ckpt_backend="orbax")
+    with pytest.raises(ValueError, match="ckpt_backend 'npz'"):
+        Trainer(None, [], ckpt_backend="npz")
+    assert Trainer(None, [], ckpt_backend="orbax").ckpt_backend == "orbax"
 
 
 # -- the steps against JAX's module ------------------------------------------------

@@ -359,15 +359,20 @@ def test_failure_mid_epoch_marks_failed_and_joins_write(setup, monkeypatch):
 
 
 def test_orbax_backend_refuses_before_the_run(setup):
-    """``trainer.ckpt_backend: orbax`` refuses in ``create_trainer`` and in
-    ``Trainer``, naming ROADMAP module 16."""
+    """``trainer.ckpt_backend: orbax`` is the directory backend now (its
+    runs: tests/test_torch_port_checkpoint_dir.py): the ``Trainer`` takes
+    it. A backend the JAX package does not have refuses in
+    ``create_trainer``, before the run writes anything, and in
+    ``Trainer``."""
     _, yaml_path, _, _ = setup
     cfg = KeypointsConfig.from_dict(KeypointsConfig.from_yaml_to_dict(
-        yaml_path, ["--trainer.ckpt_backend=orbax"]))
-    with pytest.raises(NotImplementedError, match="module 16"):
+        yaml_path, ["--trainer.ckpt_backend=npz"]))
+    with pytest.raises(ValueError, match="ckpt_backend 'npz'"):
         cfg.create_trainer()
-    with pytest.raises(NotImplementedError, match="module 16"):
-        Trainer(None, [], ckpt_backend="orbax")
+    assert not cfg.log_path.exists()
+    with pytest.raises(ValueError, match="ckpt_backend 'npz'"):
+        Trainer(None, [], ckpt_backend="npz")
+    assert Trainer(None, [], ckpt_backend="orbax").ckpt_backend == "orbax"
 
 
 def test_cli_refuses_missing_card_and_several_processes(setup, tmp_path, monkeypatch):
