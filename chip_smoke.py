@@ -15,6 +15,7 @@
     python3 chip_smoke.py --zoo-only           # the model zoo alone, see the end
     python3 chip_smoke.py --dp-train-only      # zoo and data-parallel training alone, see the end
     python3 chip_smoke.py --sharded-eval-only  # distributed eval and the utilities alone, see the end
+    python3 chip_smoke.py --model-parallel-only  # the pipeline and the mesh step alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -89,8 +90,8 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    second at the yaml's point (batch 36, 512^2, heatmaps 128^2 and 256^2,
    sigma 2, 30 persons) with 4 and 8 workers, normal and compact, and the
    host ms a sample of each stage; W32 from the yaml through
-   ``create_datamodule`` and ``create_module``, float32 and bfloat16,
-   trained from loader batches through ``DevicePrefetcher`` (pinned
+   ``create_datamodule`` and ``create_module``, bfloat16 (float32 too
+   with ``--train-data-only``), trained from loader batches through ``DevicePrefetcher`` (pinned
    staging, a side stream) across epoch boundaries beside phase 9's batch
    made on the card: ms a step, img/s, waits, peak memory, busy and idle
    share; ``validation_step`` and ``make_results`` with one launch each of
@@ -190,6 +191,18 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    (save, async submit and write, restore: ms, MB, bit for bit); the
    card-memory monitor against ``mem_get_info``; the native RLE decode
    against NumPy
+17. model parallelism (``parallel_phase``): the main path's W32 model
+   through ``PipelinedModel`` (``DEFAULT_PARTITION``, all four segments on
+   ``cuda:0``) against its monolithic forward at batch 8, 512^2, float32
+   (within 1e-4 of the outputs' scale) and bfloat16: ms a batch, img/s, each segment's ms;
+   ``InferenceKeypointsModel(pipeline_devices=1)`` with flip against
+   ``pipeline_devices=0`` (cuDNN deterministic): decisions equal, one
+   launch of the dense refine and of the grouping, each equal to its plain
+   version on that call's inputs; one float32 W32 step at batch 8 on the
+   (1, 1) and (1, 1, 1) meshes of an NCCL group of one equal to the plain
+   step bit for bit, and the ms each path adds (a tensor axis of 1 shards
+   nothing); the two tensor operators on that group, forward and backward,
+   the identity on a W32 activation
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
@@ -2289,7 +2302,8 @@ def train_data_steps(dev, cfg, smi: str, phase9: dict | None = None) -> dict:
     return rec, module, dm
 
 
-def train_data_phase(dev, counted, smi: str, phase9: dict | None = None) -> dict:
+def train_data_phase(dev, counted, smi: str, phase9: dict | None = None,
+                     float32: bool = True) -> dict:
     """Phase 10: the keypoints training input pipeline on the card. (a) a
     synthesized ``train2017`` (72 images) and ``val2017`` (12) directory in
     COCO's commonest raw sizes, 2-8 persons an image, a crowd region every
@@ -2300,7 +2314,8 @@ def train_data_phase(dev, counted, smi: str, phase9: dict | None = None) -> dict
     ``create_module``, float32 (TF32 off) and bfloat16, trained from the
     loader through ``DevicePrefetcher`` beside phase 9's batch made on the
     card (``train_data_steps``; ``phase9`` is phase 9's record when it ran
-    in this process); (e) ``validation_step`` and
+    in this process; ``float32`` False: bfloat16 alone, the yaml's dtype,
+    as the full smoke runs it for time); (e) ``validation_step`` and
     ``make_results`` on a val batch with the launch counters zeroed: one
     launch of the dense refine and one of the grouping, every output
     finite; (f) the reduced net's step on one loader batch (128^2, batch 4)
@@ -2363,7 +2378,7 @@ def train_data_phase(dev, counted, smi: str, phase9: dict | None = None) -> dict
         cudnn = torch.backends.cudnn
         saved = (cudnn.benchmark, cudnn.deterministic, cudnn.enabled)
         try:
-            for argv in (["--trainer.accelerator=gpu"], []):
+            for argv in ((["--trainer.accelerator=gpu"], []) if float32 else ([],)):
                 run_cfg = config(*argv)
                 run_cfg.apply_cudnn()
                 rec, module, run_dm = train_data_steps(dev, run_cfg, smi, phase9)
@@ -4236,12 +4251,10 @@ def ae_hourglass_steps(dev, smi: str) -> dict:
 
 
 def free_port() -> int:
-    """A free TCP port on 127.0.0.1, chosen by the OS."""
-    import socket
+    """A free TCP port on 127.0.0.1 (``parallel/distributed.py::free_port``)."""
+    from human_pose_tpu_torch.parallel.distributed import free_port as port
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    return port()
 
 
 @contextlib.contextmanager
@@ -5016,6 +5029,333 @@ def sharded_eval_only(dev, smi: str) -> int:
     return 0
 
 
+# phase 17: model parallelism on one card: the 4-segment pipeline with
+# every segment on cuda:0, the pipelined inference model, and the train
+# step on (data, space) and (data, space, model) meshes of one rank
+PAR_BATCH = 8  # W32 at 512^2: the pipeline's batch and the mesh step's
+PAR_PERSONS = 30
+PAR_STEPS = 3  # timed steps a turn (turns plain, 2-D, 3-D, 3-D, 2-D, plain)
+# the JAX package's per-unit times on a v5e behind partition_for's table
+# (ms an image: stem 0.45, stage1 0.22, stage2 0.23, stage3 1.22, stage4
+# 1.13, head 1.0): its 4-segment split's segments and their max / mean
+V5E_SEGMENT_MS = (0.90, 1.22, 1.13, 1.0)
+
+
+def pipeline_timing(dev, model, smi: str) -> dict:
+    """(1) ``PipelinedModel`` of the W32 model with ``DEFAULT_PARTITION``
+    and ``cuda:0`` as each segment's device against the monolithic eval
+    forward on a seeded batch of ``PAR_BATCH`` at ``SIZE``, float32 and
+    bfloat16: the largest output difference (float32 within 1e-4 of the
+    outputs' scale), ms a batch (CUDA events; microbatches of
+    ``_pipeline_microbatch``) and img/s
+    of each, and each segment's ms on the whole batch, against the v5e
+    balance that ``partition_for`` assumed."""
+    import contextlib
+
+    import torch
+
+    from human_pose_tpu_torch.inference.models import _pipeline_microbatch
+    from human_pose_tpu_torch.parallel import DEFAULT_PARTITION, PipelinedModel
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    x = torch.randn((PAR_BATCH, 3, SIZE, SIZE), generator=gen, device=dev)
+    mb = _pipeline_microbatch(PAR_BATCH, len(DEFAULT_PARTITION))
+    out = {"batch": PAR_BATCH, "size": SIZE, "microbatch": mb,
+           "partition": [list(seg) for seg in DEFAULT_PARTITION],
+           "v5e_segment_ms": list(V5E_SEGMENT_MS),
+           "v5e_max_over_mean": max(V5E_SEGMENT_MS) / float(np.mean(V5E_SEGMENT_MS))}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        pipe = PipelinedModel(model, DEFAULT_PARTITION, [dev] * len(DEFAULT_PARTITION), dtype=dtype)
+        compute = (contextlib.nullcontext if dtype == torch.float32
+                   else lambda: torch.autocast("cuda", dtype=dtype))
+
+        @torch.no_grad()
+        def mono():
+            with compute():
+                return model(x)
+
+        def flat(o):
+            return [*o[0], o[1]]
+
+        want, got = flat(mono()), flat(pipe(x, microbatch_size=mb))
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max(float(w.abs().max()) for w in want)
+        # float32 within 1e-4 of the outputs' scale: random W32's heatmaps
+        # reach the thousands, where float32's spacing is 2.4e-4
+        if not all(bool(torch.isfinite(g).all()) for g in got) or (
+                dtype == torch.float32 and err > 1e-4 * scale):
+            raise AssertionError(f"pipeline {name}: max |pipe - mono| {err} (scale {scale})")
+        pipe_ms = cuda_ms(lambda: pipe(x, microbatch_size=mb), iters=3)
+        mono_ms = cuda_ms(mono, iters=3)
+        seg_ms, h = [], x
+        for seg, _ in pipe.segments:
+            @torch.no_grad()
+            def run(seg=seg, h=h):
+                with compute():
+                    return seg(h)
+            seg_ms.append(cuda_ms(run, iters=3))
+            h = run()
+        out[name] = {"max_abs_err": err, "out_scale": scale, "max_rel_err": err / scale,
+                     "pipe_ms": pipe_ms, "mono_ms": mono_ms,
+                     "pipe_img_s": PAR_BATCH / pipe_ms * 1e3, "mono_img_s": PAR_BATCH / mono_ms * 1e3,
+                     "segment_ms": seg_ms,
+                     "segment_ms_an_image": [t / PAR_BATCH for t in seg_ms],
+                     "max_over_mean": max(seg_ms) / float(np.mean(seg_ms))}
+        log(f"pipeline W32 {name} bs{PAR_BATCH} {SIZE}^2, 4 segments on {dev} (microbatch {mb}): "
+            f"max |pipe - mono| {err:.3g} (outputs up to {scale:.3g}: {err / scale:.3g} of the "
+            f"scale); {pipe_ms:.2f} ms a batch "
+            f"({PAR_BATCH / pipe_ms * 1e3:.1f} img/s) vs monolithic {mono_ms:.2f} ms "
+            f"({PAR_BATCH / mono_ms * 1e3:.1f} img/s); segments "
+            + ", ".join(f"{t:.2f}" for t in seg_ms)
+            + f" ms (max/mean {out[name]['max_over_mean']:.2f}; the v5e table's "
+            f"{out['v5e_max_over_mean']:.2f})  [{smi}]")
+    return out
+
+
+def pipelined_inference(dev, model, counted, smi: str) -> dict:
+    """(2) ``InferenceKeypointsModel(pipeline_devices=1)`` (the walk through
+    ``partition_for(1)``) against ``pipeline_devices=0`` on the W32 model
+    with flip, a seeded 480x640 raw image, cuDNN deterministic: exactly
+    one launch of the dense refine and of the grouping, each kernel equal
+    to its plain version on that call's inputs, the decisions equal; the
+    kernels' times and bounds, and ``__call__``'s host ms of both."""
+    import torch
+
+    from human_pose_tpu_torch.inference import InferenceKeypointsModel
+    from human_pose_tpu_torch.ops import cuda_decode, cuda_match
+
+    kw = dict(det_thr=DET_THR, tag_thr=TAG_THR, max_num_people=M, input_size=SIZE, use_flip=True)
+    raw = np.random.default_rng(SEED + 17).integers(0, 256, (*INFER_RAW_HW, 3), dtype=np.uint8)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        mono = InferenceKeypointsModel(model, device=dev, **kw)
+        piped = InferenceKeypointsModel(model, pipeline_devices=1, device=dev, **kw)
+        want = mono(raw)
+        got, launches = counted(lambda: piped(raw), "phase 17 pipelined inference model (flip)",
+                                {"match_by_tag": 1, "refine_argmax": 1})
+        equal = (np.array_equal(got.kpts_coords, want.kpts_coords)
+                 and np.array_equal(got.obj_scores, want.obj_scores))
+        seen = record_kernel_inputs(lambda: piped(raw))
+        hm, tg, prev, cnt = seen["refine_argmax"]
+        cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
+        refine_equal = torch.equal(cuda_decode.refine_argmax_batch(hm, tg, prev, cnt),
+                                   cuda_decode.refine_argmax_batch_plain(hm, tg, prev, cnt))
+        t0 = time.perf_counter()
+        plain = cuda_match.match_by_tag_batched_plain(cand, det_thr, tag_thr, order, persons)
+        torch.cuda.synchronize()
+        match_plain_ms = (time.perf_counter() - t0) * 1e3
+        match_equal = all(torch.equal(a, b) for a, b in zip(
+            cuda_match.match_by_tag_batched(cand, det_thr, tag_thr, order, persons), plain))
+        if not (equal and refine_equal and match_equal):
+            raise AssertionError(f"pipelined inference: decisions equal {equal}, refine == plain "
+                                 f"{refine_equal}, grouping == plain {match_equal}")
+        rec = {"launches": launches, "persons": len(got.kpts_coords), "decisions_equal": equal,
+               "model_input_hw": piped.model_input_shape,
+               **path_kernel_times(lambda: piped(raw)),
+               "refine_plain_ms": cuda_ms(lambda: cuda_decode.refine_argmax_batch_plain(
+                   hm, tg, prev, cnt), iters=2),
+               "match_plain_ms": match_plain_ms,
+               "call_host_ms": {"pipeline_devices=1": host_ms(lambda: piped(raw), iters=3),
+                                "monolithic": host_ms(lambda: mono(raw), iters=3)}}
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    log(f"pipelined inference model (pipeline_devices=1, flip, {rec['model_input_hw']}): "
+        f"{rec['persons']} persons, decisions == pipeline_devices=0 (cuDNN deterministic), one "
+        f"launch of each kernel, each == plain on the call's inputs; refine {rec['refine_ms']:.4f} "
+        f"ms (bound {rec['refine_bound_ms']:.4f}), grouping {rec['match_ms']:.4f} ms; __call__ "
+        f"{rec['call_host_ms']}  [{smi}]")
+    return rec
+
+
+def count_collectives():
+    """A context that counts the ``torch.distributed`` collectives and
+    point-to-point batches called in it; yields the counts."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "batch_isend_irecv")
+    counts = dict.fromkeys(names, 0)
+    originals = {n: getattr(dist, n) for n in names}
+
+    def counting(n):
+        def call(*args, **kwargs):
+            counts[n] += 1
+            return originals[n](*args, **kwargs)
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        try:
+            for n in names:
+                setattr(dist, n, counting(n))
+            yield counts
+        finally:
+            for n, f in originals.items():
+                setattr(dist, n, f)
+    return ctx()
+
+
+def mesh_step(dev, smi: str) -> dict:
+    """(3) One float32 Adam step of W32 at ``SIZE`` (batch ``PAR_BATCH``, a
+    card batch) without a mesh and on the (1, 1) and (1, 1, 1) meshes of
+    an NCCL group of one (``shard_state_tensor``: the mesh modules, a
+    tensor axis of 1 sharding nothing; ``shard_batch_spatial``; the tag
+    gather and the moment-group reductions), cuDNN deterministic: metrics,
+    parameters and buffers bit for bit equal; then ``PAR_STEPS`` steps a
+    turn in turns plain, 2-D, 3-D, 3-D, 2-D, plain (host wall to a sync):
+    the ms each path adds, and the collectives of one mesh step. The two
+    tensor operators, which that step no longer runs, are held to the
+    identity on the group of one (``tensor_operators_of_one``)."""
+    import copy
+
+    import torch
+
+    from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
+    from human_pose_tpu_torch.parallel import (
+        make_mesh_2d, make_mesh_3d, shard_batch_spatial, shard_state_tensor,
+    )
+    from human_pose_tpu_torch.train import TrainState, create_optimizer, keypoints_train_step
+
+    net = init_flax_default_(HigherHRNet(num_kpts=K, C=32, device=dev),
+                             torch.Generator().manual_seed(SEED + 17))
+    batch = train_batch(PAR_BATCH, SIZE, PAR_PERSONS, torch.Generator(device=dev).manual_seed(SEED + 17),
+                        dev)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    times = {"plain": [], "2d": [], "3d": []}
+    try:
+        with process_group_of_one():
+            meshes = {"plain": None, "2d": make_mesh_2d(1, 1), "3d": make_mesh_3d(1, 1, 1)}
+            states, batches, first = {}, {}, {}
+            for name, mesh in meshes.items():
+                model = copy.deepcopy(net)
+                if mesh is not None:
+                    shard_state_tensor(mesh, model)
+                states[name] = TrainState.create(model, create_optimizer(model.parameters(), "Adam", 1e-3),
+                                                 device=dev, mesh=mesh)
+                batches[name] = batch if mesh is None else shard_batch_spatial(mesh, batch)
+                if name == "3d":
+                    with count_collectives() as calls:
+                        metrics = keypoints_train_step(states[name], batches[name], 1e-3)[1]
+                    calls = dict(calls)
+                else:
+                    metrics = keypoints_train_step(states[name], batches[name], 1e-3)[1]
+                first[name] = ({k: float(v) for k, v in metrics.items()},
+                               {k: v.cpu() for k, v in model.state_dict().items()})
+            for name in ("2d", "3d"):
+                same = first[name][0] == first["plain"][0] and all(
+                    torch.equal(v, first["plain"][1][k]) for k, v in first[name][1].items())
+                if not same:
+                    raise AssertionError(f"the ({', '.join('1' * len(meshes[name].dims))}) mesh step "
+                                         "differs from the plain step")
+
+            def step(name):
+                keypoints_train_step(states[name], batches[name], 1e-3)
+                torch.cuda.synchronize()
+
+            for name in ("plain", "2d", "3d", "3d", "2d", "plain"):
+                times[name] += [host_ms(lambda: step(name)) for _ in range(PAR_STEPS)]
+            busy = {name: profile_breakdown(lambda: step(name))[0] for name in ("plain", "3d")}
+            one = collective_ms(meshes["3d"], dev)
+            tensor_operators_of_one(meshes["3d"], dev)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    rec = {"batch": PAR_BATCH, "size": SIZE, "dtype": "float32", "bit_equal": True,
+           "loss": first["plain"][0]["loss"], "collectives_3d_step": calls,
+           **{f"{k}_ms": float(np.median(v)) for k, v in times.items()},
+           **{f"{k}_ms_all": v for k, v in times.items()}}
+    rec["spatial_adds_ms"] = rec["2d_ms"] - rec["plain_ms"]
+    rec["tensor_adds_ms"] = rec["3d_ms"] - rec["2d_ms"]
+    rec["device_busy_ms"] = busy
+    rec["collective_ms"] = one
+    log(f"mesh step W32 float32 bs{PAR_BATCH} {SIZE}^2 (cuDNN deterministic): the (1, 1) and "
+        f"(1, 1, 1) meshes of an NCCL group of one == the plain step bit for bit (metrics, "
+        f"parameters, buffers); {rec['plain_ms']:.1f} ms plain, {rec['2d_ms']:.1f} ms (1, 1) "
+        f"(spatial path {rec['spatial_adds_ms']:+.1f}), {rec['3d_ms']:.1f} ms (1, 1, 1) (over "
+        f"(1, 1): {rec['tensor_adds_ms']:+.1f}; {calls} a step); medians of {2 * PAR_STEPS} "
+        f"in turns; device busy in one step {busy} ms; one collective of the tensor group on a "
+        f"[{PAR_BATCH}, 32, {SIZE // 4}, {SIZE // 4}] activation: {one}  [{smi}]")
+    return rec
+
+
+def tensor_operators_of_one(mesh, dev) -> None:
+    """``parallel/tensor.py``'s two operators (the input's identity with an
+    all-reduce backward, the channel all-gather with a slicing backward) on
+    ``mesh``'s tensor group of one, through NCCL, on a float32 ``[PAR_BATCH,
+    32, SIZE/4, SIZE/4]`` activation: forward and backward the identity,
+    bit for bit. Raises on a miss."""
+    import torch
+
+    from human_pose_tpu_torch.parallel.tensor import _CopyToTensorGroup, _GatherChannels
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    x = torch.randn((PAR_BATCH, 32, SIZE // 4, SIZE // 4), generator=gen, device=dev, requires_grad=True)
+    g = torch.randn(x.shape, generator=gen, device=dev)
+    y = _GatherChannels.apply(_CopyToTensorGroup.apply(x, mesh.tensor_group), mesh)
+    y.backward(g)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, x) and torch.equal(x.grad, g)):
+        raise AssertionError("the tensor operators over an NCCL group of one are not the identity")
+    log(f"tensor operators over the NCCL tensor group of one on {tuple(x.shape)}: forward and "
+        "backward the identity, bit for bit")
+
+
+def collective_ms(mesh, dev, calls: int = 50) -> dict:
+    """ms of one all-gather and of one all-reduce over ``mesh``'s tensor
+    group on a float32 ``[PAR_BATCH, 32, SIZE/4, SIZE/4]`` activation (W32's
+    widest branch): ``calls`` of each, host wall to a sync and CUDA events
+    on the current stream, divided by ``calls``."""
+    import torch
+    import torch.distributed as dist
+
+    y = torch.randn((PAR_BATCH, 32, SIZE // 4, SIZE // 4), device=dev)
+    parts = [torch.empty_like(y) for _ in range(mesh.n_tensor)]
+    ops = {"all_gather": lambda: dist.all_gather(parts, y, group=mesh.tensor_group),
+           "all_reduce": lambda: dist.all_reduce(y, group=mesh.tensor_group)}
+    out = {}
+    for name, op in ops.items():
+        def run(op=op):
+            for _ in range(calls):
+                op()
+        out[f"{name}_host_ms"] = host_ms(lambda: (run(), torch.cuda.synchronize())) / calls
+        out[f"{name}_event_ms"] = cuda_ms(run, iters=1) / calls
+    return out
+
+
+def parallel_phase(dev, model, counted, smi: str) -> dict:
+    """Phase 17: the pipeline (``pipeline_timing``), the pipelined
+    inference model (``pipelined_inference``) and the mesh step
+    (``mesh_step``). Raises on any miss; returns the phase's record."""
+    t_phase = time.perf_counter()
+    out = {"card": smi, "pipeline": pipeline_timing(dev, model, smi),
+           "inference": pipelined_inference(dev, model, counted, smi)}
+    out["mesh_step"], _ = counted(lambda: mesh_step(dev, smi), "phase 17 (the mesh steps)", {})
+    out["launches"] = out["inference"]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 17 (pipeline, pipelined inference, mesh step): {out['seconds']:.1f}s")
+    return out
+
+
+def model_parallel_only(dev, smi: str) -> int:
+    """Phase 17 alone: build the dense refine and the grouping, make the
+    main path's W32 model, then the phase. Prints the phase's record as one
+    JSON object last."""
+    import torch
+
+    from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
+    from human_pose_tpu_torch.ops import _build
+
+    log(f"build: per kernel {_build.build_kernels(('refine_argmax', 'match_by_tag'))}")
+    model = HigherHRNet(num_kpts=K, C=32, device=dev)
+    init_flax_default_(model, torch.Generator().manual_seed(SEED))
+    counted = make_counted(kernel_counters())
+    print(json.dumps({"model_parallel": parallel_phase(dev, model.eval(), counted, smi)}), flush=True)
+    return 0
+
+
 def refine_only(dev, rng, smi: str) -> int:
     """The short loop for the dense refine: build, SASS counts, parity, then
     its time on the main path's and the dense scene's inputs and over a
@@ -5313,6 +5653,9 @@ def main() -> int:
     parser.add_argument("--sharded-eval-only", action="store_true",
                         help="build the decode's two kernels and run phase 16 (distributed eval, "
                              "checkpoint directories, the memory monitor, the RLE decode) alone")
+    parser.add_argument("--model-parallel-only", action="store_true",
+                        help="build the decode's two kernels and run phase 17 (the pipeline, the "
+                             "pipelined inference model, the mesh step) alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -5374,6 +5717,8 @@ def main() -> int:
         return dp_train_only(dev, smi)
     if args.sharded_eval_only:
         return sharded_eval_only(dev, smi)
+    if args.model_parallel_only:
+        return model_parallel_only(dev, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -5593,7 +5938,8 @@ def main() -> int:
     train_rec = train_phase(dev, counted, smi)
 
     # 10. the training input pipeline
-    train_data_rec = train_data_phase(dev, counted, smi, train_rec)
+    # (bfloat16 alone: the yaml's dtype; --train-data-only runs float32 too)
+    train_data_rec = train_data_phase(dev, counted, smi, train_rec, float32=False)
 
     # 11. the training engine
     train_engine_rec = train_engine_phase(dev, counted, smi, train_data_rec)
@@ -5613,6 +5959,9 @@ def main() -> int:
     # 16. distributed eval, checkpoint directories, the monitor, the RLE decode
     sharded_rec = sharded_eval_phase(dev, counted, smi)
 
+    # 17. model parallelism: the pipeline, the pipelined inference model, the mesh step
+    parallel_rec = parallel_phase(dev, model, counted, smi)
+
     # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
     dense_in = record_kernel_inputs(decode_dense)
@@ -5628,7 +5977,8 @@ def main() -> int:
              "serve": serve_rec["launches"],
              "zoo": zoo_rec["launches"],
              "zoo_train_val": dp_rec["launches"],
-             "sharded_eval": sharded_rec["launches"]}
+             "sharded_eval": sharded_rec["launches"],
+             "pipeline": parallel_rec["launches"]}
 
     def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
         return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
@@ -5656,7 +6006,8 @@ def main() -> int:
         eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("refine")},
         zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("refine")},
         zoo_train_val={k_: v for k_, v in dp_rec["cli"].items() if k_.startswith("refine")},
-        sharded_eval={k_: v for k_, v in sharded_rec["eval"]["kernels"].items() if k_.startswith("refine")}))
+        sharded_eval={k_: v for k_, v in sharded_rec["eval"]["kernels"].items() if k_.startswith("refine")},
+        pipeline={k_: v for k_, v in parallel_rec["inference"].items() if k_.startswith("refine")}))
     cand, _, _, order, persons = main_in["match_by_tag"]
     # the plain grouping runs one image after another (~4 s an image on the
     # card): timed on the first MATCH_PLAIN_IMAGES images, the kernel too
@@ -5680,7 +6031,8 @@ def main() -> int:
         eval_bs8={k_: v for k_, v in eval_rec["kernels"].items() if k_.startswith("match")},
         zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("match")},
         zoo_train_val={k_: v for k_, v in dp_rec["cli"].items() if k_.startswith("match")},
-        sharded_eval={k_: v for k_, v in sharded_rec["eval"]["kernels"].items() if k_.startswith("match")}))
+        sharded_eval={k_: v for k_, v in sharded_rec["eval"]["kernels"].items() if k_.startswith("match")},
+        pipeline={k_: v for k_, v in parallel_rec["inference"].items() if k_.startswith("match")}))
     kernels.append(row(
         "match_by_tag_per_image", "per_image", "exact joints and count; equal to match_by_tag",
         cuda_ms(lambda: cuda_match.match_by_tag_per_image(cand_s, DET_THR, TAG_THR, order_s, persons_s),
@@ -5760,6 +6112,7 @@ def main() -> int:
     print(json.dumps({"zoo": zoo_rec}), flush=True)
     print(json.dumps({"dp_train": dp_rec}), flush=True)
     print(json.dumps({"sharded_eval": sharded_rec}), flush=True)
+    print(json.dumps({"model_parallel": parallel_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -40,7 +40,7 @@ import torch
 
 from ..data.affine import get_multi_scale_size
 from ..loggers.pylogger import log
-from ..parallel.mesh import gather_to_main
+from ..parallel.mesh import gather_to_main, require_data_mesh
 from .models import InferenceKeypointsModel
 from .results import InferenceKeypointsResult
 
@@ -139,6 +139,8 @@ class BatchedKeypointsEvaluator:
                 "inference.pipeline_devices is for the serial/serving path; batched eval "
                 "parallelizes over the data mesh (--sharded) instead — unset one of the two"
             )
+        if mesh is not None:
+            require_data_mesh(mesh, "the batched evaluator")
         world = 1 if mesh is None else mesh.world_size
         if batch_size % world:
             raise ValueError(f"batch_size {batch_size} not divisible by the {world}-device mesh")

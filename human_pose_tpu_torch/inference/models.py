@@ -71,6 +71,18 @@ def mask_pad_region(avg: torch.Tensor, valid_hw) -> torch.Tensor:
                        torch.tensor(-1e4, dtype=avg.dtype, device=avg.device))
 
 
+def _pipeline_microbatch(total: int, n_segments: int) -> int:
+    """Largest divisor of ``total`` that is <= ceil(total / n_segments):
+    enough equal-size microbatches to fill all pipeline segments, so fill
+    and drain overlap (one whole-batch microbatch would run the segments
+    strictly one after another)."""
+    target = max(1, -(-total // n_segments))
+    for m in range(target, 0, -1):
+        if total % m == 0:
+            return m
+    return 1
+
+
 def _model_device(model: nn.Module, device) -> torch.device:
     """The device of ``model``'s parameters, which must be ``device``
     (resolved: the card unless the caller asks for the CPU)."""
@@ -107,14 +119,22 @@ class InferenceKeypointsModel:
         pad region. APPROXIMATE: padding alters activations within a
         receptive field of the pad edge; 64 = exact reference behavior.
         ``compact_inputs`` ships uint8 pixels to the device and normalizes
-        there; bucket padding then uses ``PAD_PIXEL_U8``."""
-        if pipeline_devices:
-            raise NotImplementedError(
-                "pipeline_devices: the pipeline-parallel forward comes with the port's "
-                "parallelism, ROADMAP module 14")
+        there; bucket padding then uses ``PAD_PIXEL_U8``. ``pipeline_devices``
+        N > 0 splits the forward into ``partition_for(N)``'s segments
+        (``parallel/pipeline.py``): on ``cuda:0`` ... ``cuda:N-1`` for a
+        model on the card (raising with fewer cards), on the CPU N times for
+        a model there; the flip pass rides the same microbatch walk."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.device = _model_device(model, device)
+        self._pipe = None
+        if pipeline_devices:
+            from ..parallel.pipeline import PipelinedModel, cuda_devices, partition_for
+
+            partition = partition_for(pipeline_devices)
+            devices = (cuda_devices(pipeline_devices) if self.device.type == "cuda"
+                       else [self.device] * pipeline_devices)
+            self._pipe = PipelinedModel(model, partition, devices, dtype=dtype)
         self.model = model
         self.dtype = dtype
         self.det_thr = det_thr
@@ -134,21 +154,32 @@ class InferenceKeypointsModel:
         with torch.autocast(self.device.type, dtype=self.dtype):
             return self.model(x)
 
+    def _pipelined(self, x: torch.Tensor):
+        """The pipeline's forward on ``x``, in microbatches that fill its
+        segments (``_pipeline_microbatch``), its outputs on the model's
+        device."""
+        from ..parallel.pipeline import tree_to
+
+        mb = _pipeline_microbatch(x.shape[0], len(self._pipe.segments))
+        return tree_to(self._pipe(x, microbatch_size=mb), self.device)
+
     @torch.no_grad()
     def forward_scale(self, x: torch.Tensor, hw: tuple):
         """One multi-scale pass on ``x`` (``[N, 3, H, W]`` on the model's
         device, uint8 or float): forward (+flip), aggregate stages, resize to
         the common decode size ``hw``. Returns (avg ``[N, K, h, w]``, tags
         list of ``[N, K, h, w]``, two with flip). The flip pass rides in the
-        same forward as the plain one (eval BN: per-sample results)."""
+        same forward as the plain one (eval BN: per-sample results), through
+        the pipeline's walk when there is one."""
         x = prep_images(x)
         n = x.shape[0]
+        forward = self._forward if self._pipe is None else self._pipelined
         if self.use_flip:
-            stages_hms, tags = self._forward(torch.cat([x, x.flip(3)]))
+            stages_hms, tags = forward(torch.cat([x, x.flip(3)]))
             stages_hms = [merge_flip_heatmaps(h[:n], h[n:]) for h in stages_hms]
             tags_list = [tags[:n], flip_back(tags[n:])]
         else:
-            stages_hms, tags = self._forward(x)
+            stages_hms, tags = forward(x)
             tags_list = [tags]
         avg = resize_bilinear(average_stages(stages_hms), *hw)
         return avg, [resize_bilinear(t, *hw) for t in tags_list]

@@ -71,7 +71,11 @@ class HigherHRNet(nn.Module):
         self.to(dev)
 
     def forward(self, images: torch.Tensor):
-        feats = self.backbone(images)[0]
+        return self.head(self.backbone(images)[0])
+
+    def head(self, feats: torch.Tensor):
+        """``init_heatmaps_head`` and the deconv head on the backbone's 1/4
+        map ``feats``: ``([hm_quarter, hm_half], tags)`` in float32."""
         init = self.init_heatmaps_head(feats)
         head, head_in = self.deconv_layers[0], torch.cat([feats, init], dim=1)
         deconv = rematerialized(head, head_in) if self.remat_head and self.training else head(head_in)

@@ -16,6 +16,10 @@ gloo.
 from __future__ import annotations
 
 import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
@@ -25,6 +29,9 @@ from ..loggers.pylogger import log
 
 # torchrun's variables; all of them must be set for a process group
 ENV_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+# the directory that holds this package
+ROOT = Path(__file__).resolve().parents[2]
 
 # whether setup_distributed made the default group (finalize_distributed
 # destroys only that one, as the JAX package's shutdown)
@@ -63,3 +70,27 @@ def finalize_distributed() -> None:
     if _initialized and dist.is_initialized():
         dist.destroy_process_group()
     _initialized = False
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1, chosen by the OS."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch_local(n: int, code: str) -> list[subprocess.Popen]:
+    """Start ``n`` Python processes running ``code`` from the directory
+    that holds this package (on their ``PYTHONPATH``), as torchrun's ranks
+    0 ... n-1 of one group on 127.0.0.1 (a free port; one thread each);
+    each one's output and errors merged into its ``stdout`` pipe. The
+    caller waits for them and stops them."""
+    port = free_port()
+    procs = []
+    for rank in range(n):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": str(n),
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "OMP_NUM_THREADS": "1",
+               "PYTHONPATH": os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))}
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs

@@ -16,7 +16,9 @@ Everything in it is a tensor or a plain Python value, so ``load_checkpoint``
 reads it with ``torch.load(weights_only=True)``.
 
 ``load_train_state`` restores the model, the optimizer state and the step
-into an existing state, on its device. ``load_params_partial`` is the
+into an existing state, on its device. A tensor-sharded state
+(``parallel/tensor.py``) is saved whole, as a one-process state of the
+same model. ``load_params_partial`` is the
 name-intersection load of pretrained weights. The directory backend
 (``trainer.ckpt_backend: orbax``) is ``train/checkpoint_orbax.py``.
 """
@@ -30,6 +32,7 @@ from pathlib import Path
 import torch
 
 from ..loggers.pylogger import log
+from ..parallel.tensor import whole_state_dicts
 from ..utils.weights import read_state_dict
 from .state import TrainState
 
@@ -55,12 +58,19 @@ def _map_tensors(obj, fn):
     return obj
 
 
+def _tensor_sharded(state: TrainState) -> bool:
+    return state.mesh is not None and state.mesh.n_tensor > 1
+
+
 def _module_payload(state: TrainState, lr_schedulers: dict | None = None) -> dict:
     """The ``module`` entry: the model's and the optimizer's state dicts
-    (tensors shared with the live ones), the schedulers' and the step."""
+    (tensors shared with the live ones; a tensor-sharded state's gathered
+    whole, ``parallel/tensor.py::whole_state_dicts``), the schedulers' and
+    the step."""
+    model_sd, optim_sd = whole_state_dicts(state)
     return {
-        "model": state.model.state_dict(),
-        "optimizers": {"optim": state.optimizer.state_dict()},
+        "model": model_sd,
+        "optimizers": {"optim": optim_sd},
         "lr_schedulers": lr_schedulers or {},
         "step": int(state.step),
     }
@@ -88,9 +98,13 @@ def _write(path: str | Path, module: dict, epoch: int, datamodule_state=None, me
 def save_checkpoint(path: str | Path, state: TrainState, epoch: int, lr_schedulers: dict | None = None,
                     datamodule_state: dict | None = None, metrics_state: dict | None = None,
                     callbacks_state: dict | None = None, logger_state: dict | None = None) -> None:
-    """Write everything to ``path`` (through a ``.tmp`` file and a rename)."""
-    _write(path, _module_payload(state, lr_schedulers), epoch, datamodule_state, metrics_state,
-           callbacks_state, logger_state)
+    """Write everything to ``path`` (through a ``.tmp`` file and a rename).
+    A tensor-sharded state is gathered whole: every rank of its mesh calls
+    this, and rank 0 writes."""
+    module = _module_payload(state, lr_schedulers)
+    if _tensor_sharded(state) and state.mesh.rank != 0:
+        return
+    _write(path, module, epoch, datamodule_state, metrics_state, callbacks_state, logger_state)
 
 
 class AsyncCheckpointWriter:
@@ -122,6 +136,9 @@ class AsyncCheckpointWriter:
 
     def submit(self, path: str | Path, state: TrainState, epoch: int, lr_schedulers: dict | None = None,
                **host_state) -> None:
+        if _tensor_sharded(state):
+            raise ValueError("a tensor-sharded state saves synchronously (save_checkpoint): "
+                             "its gather is a collective of every rank")
         self.wait()
         module = _map_tensors(_module_payload(state, copy.deepcopy(lr_schedulers)),
                               lambda t: t.detach().clone())

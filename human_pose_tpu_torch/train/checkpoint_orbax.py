@@ -41,6 +41,7 @@ from torch.distributed.checkpoint.metadata import TensorStorageMetadata
 
 from ..loggers.pylogger import log
 from ..parallel.mesh import barrier
+from ..parallel.tensor import whole_state_dicts
 from ..utils.utils import get_rank, process_group_initialized
 from .state import TrainState
 
@@ -87,11 +88,13 @@ def _one_process_quiet():
 
 
 def _arrays(state: TrainState) -> tuple[dict, dict]:
-    """The state's tensors under flat keys, and the optimizer's state
-    that is not a tensor (its parameter groups, scalars)."""
+    """The state's tensors under flat keys (a tensor-sharded state's
+    gathered whole, ``parallel/tensor.py::whole_state_dicts``: every rank
+    holds them all), and the optimizer's state that is not a tensor (its
+    parameter groups, scalars)."""
     arrays = {"step": torch.tensor(int(state.step), dtype=torch.int64)}
-    arrays.update({f"model.{k}": v for k, v in state.model.state_dict().items()})
-    opt = state.optimizer.state_dict()
+    model_sd, opt = whole_state_dicts(state)
+    arrays.update({f"model.{k}": v for k, v in model_sd.items()})
     host_opt = {"param_groups": opt["param_groups"], "state": {}}
     for pid, entries in opt["state"].items():
         for key, value in entries.items():

@@ -17,7 +17,11 @@ group, each on its shard of the global batch), ``_update`` first averages
 the parameter gradients and the per-process BatchNorm running statistics
 over the processes, and a train step's metrics are averaged before they are
 returned: with equal shards, the JAX package's step on the global batch.
-Without a mesh nothing of that runs.
+Without a mesh nothing of that runs. On a (data, space[, model]) mesh
+(``parallel/tensor.py::shard_state_tensor``, a batch of
+``parallel/spatial.py::shard_batch_spatial``) the same reductions run over
+the moment group, and the keypoints loss takes the tag maps gathered over
+the space group (``gather_rows``).
 
 * classification: ``images`` ``[N, 3, H, W]`` uint8 or float and
   ``labels`` ``[N]`` int; cross entropy and the top-1 and top-5 errors.
@@ -35,6 +39,7 @@ import torch
 from ..ops.grouping import _top_k
 from ..ops.images import prep_images
 from ..parallel.mesh import all_reduce_mean_, average_gradients_, average_running_stats_
+from ..parallel.spatial import gather_rows
 from .losses import ae_keypoints_loss, classification_loss
 from .optim import set_learning_rate
 from .state import TrainState
@@ -133,6 +138,8 @@ def _keypoints_backward(state: TrainState, batch: dict) -> dict:
     state.model.train()
     with _compute(state):
         out = state.model(prep_images(batch["images"]))
+    if state.mesh is not None and state.mesh.dims:
+        out = (out[0], gather_rows(out[1], state.mesh))
     total, metrics = _keypoints_losses(out, batch)
     total.backward()
     return {key: value.detach() for key, value in metrics.items()}

@@ -1702,3 +1702,106 @@ def test_gpu_info_monitor_on_card(dev, tmp_path):
     mon.stop()
     assert (tmp_path / "gpu.log").read_text().splitlines()[1] == lines[1]
     del x
+
+
+# -- model parallelism on one card ---------------------------------------------------------
+
+def _w32(dev):
+    from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
+
+    return init_flax_default_(HigherHRNet(num_kpts=17, C=32, device=dev),
+                              torch.Generator().manual_seed(17)).eval()
+
+
+def test_pipeline_w32_four_segments_on_one_card(dev):
+    """``PipelinedModel`` of W32 with ``DEFAULT_PARTITION`` and ``cuda:0``
+    as each segment's device, two microbatches of two at 256^2, float32:
+    every output within 1e-4 of the monolithic forward's scale (random
+    W32's heatmaps reach the thousands, where float32's spacing is 2.4e-4;
+    cuDNN picks other algorithms at batch 2)."""
+    from human_pose_tpu_torch.parallel import DEFAULT_PARTITION, PipelinedModel
+
+    net = _w32(dev)
+    x = torch.randn((4, 3, 256, 256), generator=torch.Generator(device=dev).manual_seed(17), device=dev)
+    pipe = PipelinedModel(net, DEFAULT_PARTITION, [dev] * 4)
+    assert len(pipe.segments) == 4 and all(d == dev for _, d in pipe.segments)
+    hms, tags = pipe(x, microbatch_size=2)
+    with torch.no_grad():
+        want_hms, want_tags = net(x)
+    for got, want in zip([*hms, tags], [*want_hms, want_tags]):
+        assert got.device == dev and got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_pipelined_predictor_launches_each_decode_kernel_once(dev):
+    """``InferenceKeypointsModel(pipeline_devices=1)`` with flip behind
+    ``BatchedKeypointsPredictor``: a predict of three requests launches the
+    dense refine and the grouping once each, and its payloads equal those
+    of ``pipeline_devices=0`` (cuDNN deterministic)."""
+    from human_pose_tpu_torch.inference import InferenceKeypointsModel
+    from human_pose_tpu_torch.inference.serving import BatchedKeypointsPredictor
+    from human_pose_tpu_torch.ops import cuda_decode, cuda_match
+
+    net = _w32(dev)
+    rng = np.random.default_rng(17)
+    raws = [rng.integers(0, 256, (240, 320, 3), dtype=np.uint8) for _ in range(3)]
+    kw = dict(use_flip=True, input_size=256, det_thr=0.05, tag_thr=0.5)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        out = {}
+        for n in (0, 1):
+            pred = BatchedKeypointsPredictor(InferenceKeypointsModel(net, pipeline_devices=n, device=dev, **kw))
+            reqs = [pred.prepare(raw) for raw in raws]
+            cuda_decode.refine_argmax_batch.launches = cuda_match.match_by_tag_batched.launches = 0
+            out[n] = pred.predict(reqs)
+            torch.cuda.synchronize()
+            assert (cuda_decode.refine_argmax_batch.launches, cuda_match.match_by_tag_batched.launches) == (1, 1)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    assert out[1] == out[0]
+
+
+def test_mesh_of_one_nccl_step_bit_equal(dev):
+    """One float32 Adam step of W32 (batch 2 at 128^2) on the (1, 1) and
+    (1, 1, 1) meshes of an NCCL group of one (``chip_smoke``'s phase 17
+    check) equals the step without a mesh bit for bit: metrics, parameters
+    and buffers (cuDNN deterministic)."""
+    import torch.distributed as dist
+
+    from human_pose_tpu_torch.parallel import (
+        make_mesh_2d, make_mesh_3d, shard_batch_spatial, shard_state_tensor,
+    )
+    from human_pose_tpu_torch.train import TrainState, create_optimizer, keypoints_train_step
+
+    import chip_smoke
+
+    net = _w32(dev)
+    batch = chip_smoke.train_batch(2, 128, 10, torch.Generator(device=dev).manual_seed(17), dev)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    runs = []
+    try:
+        with chip_smoke.process_group_of_one():
+            assert dist.get_backend() == "nccl"
+            for mesh in (None, make_mesh_2d(1, 1), make_mesh_3d(1, 1, 1)):
+                model = copy.deepcopy(net)
+                if mesh is not None:
+                    assert mesh.device == dev
+                    shard_state_tensor(mesh, model)
+                state = TrainState.create(model, create_optimizer(model.parameters(), "Adam", 1e-3),
+                                          device=dev, mesh=mesh)
+                part = batch if mesh is None else shard_batch_spatial(mesh, batch)
+                metrics = keypoints_train_step(state, part, 1e-3)[1]
+                runs.append(({k: float(v) for k, v in metrics.items()},
+                             {k: v.cpu() for k, v in model.state_dict().items()}))
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    assert not dist.is_initialized()
+    (m_plain, sd_plain), *meshes = runs
+    for m_mesh, sd_mesh in meshes:
+        assert m_mesh == m_plain
+        assert sd_mesh.keys() == sd_plain.keys()
+        assert all(torch.equal(v, sd_mesh[k]) for k, v in sd_plain.items())

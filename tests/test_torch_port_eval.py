@@ -342,11 +342,12 @@ def test_deterministic_and_cudnn_section():
 
 def test_config_refusals():
     """An unknown checkpoint backend (the two of the JAX package, "flax" and
-    "orbax", are ported: tests/test_torch_port_checkpoint_dir.py), an
-    unknown architecture and the pipeline-parallel inference model (14c)
-    refuse. The data-parallel pieces do not: one process has no mesh, and
-    two BatchNorm groups give the per-group BatchNorm
-    (tests/test_torch_port_parallel.py)."""
+    "orbax", are ported: tests/test_torch_port_checkpoint_dir.py) and an
+    unknown architecture refuse. The data-parallel pieces do not: one
+    process has no mesh, and two BatchNorm groups give the per-group
+    BatchNorm (tests/test_torch_port_parallel.py); nor does the
+    pipeline-parallel inference model (tests/test_torch_port_pipeline.py),
+    whose segments go to the CPU with the accelerator."""
     cfg = KeypointsConfig.from_dict({"trainer": {"accelerator": "cpu"}})
     other = KeypointsConfig.from_dict({"trainer": {"accelerator": "cpu", "ckpt_backend": "npz"}})
     with pytest.raises(ValueError, match="ckpt_backend 'npz'"):
@@ -366,8 +367,8 @@ def test_config_refusals():
     pipe = KeypointsConfig.from_dict({"trainer": {"accelerator": "cpu"},
                                       "inference": {"pipeline_devices": 2},
                                       "net": {"params": dict(C=8, **TINY)}})
-    with pytest.raises(NotImplementedError, match="module 14"):
-        pipe.create_inference_model()
+    piped = pipe.create_inference_model()
+    assert piped.pipeline_devices == 2 and piped._pipe.devices == [torch.device("cpu")] * 2
 
 
 def test_create_inference_model_device_and_dtype():

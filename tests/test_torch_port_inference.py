@@ -188,8 +188,11 @@ def test_bucket_padding_masks_the_pad_region(tiny_net):
 
 
 def test_refusals(tiny_net):
-    with pytest.raises(NotImplementedError, match="module 14"):
-        InferenceKeypointsModel(tiny_net, pipeline_devices=2, device="cpu")
+    # the pipeline-parallel model is built (tests/test_torch_port_pipeline.py);
+    # it refuses a segment count outside partition_for's table
+    assert len(InferenceKeypointsModel(tiny_net, pipeline_devices=2, device="cpu")._pipe.segments) == 2
+    with pytest.raises(ValueError, match="1-6 segments"):
+        InferenceKeypointsModel(tiny_net, pipeline_devices=7, device="cpu")
     with pytest.raises(ValueError, match="dtype"):
         InferenceKeypointsModel(tiny_net, dtype=torch.float16, device="cpu")
 
