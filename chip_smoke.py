@@ -16,6 +16,7 @@
     python3 chip_smoke.py --dp-train-only      # zoo and data-parallel training alone, see the end
     python3 chip_smoke.py --sharded-eval-only  # distributed eval and the utilities alone, see the end
     python3 chip_smoke.py --model-parallel-only  # the pipeline and the mesh step alone, see the end
+    python3 chip_smoke.py --bench-only         # the benchmark CLIs alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -203,6 +204,20 @@ seeded synthetic scenes. Phases, any failure exits non-zero:
    step bit for bit, and the ms each path adds (a tensor axis of 1 shards
    nothing); the two tensor operators on that group, forward and backward,
    the identity on a W32 activation
+18. the benchmark CLIs (``bench_phase``): ``bin.bench_decompose`` at its
+   defaults (W32, batch 8 at 512^2, 10 iterations a pass) with the counters
+   zeroed: its four records (forward, decode on GT-like sparse maps, decode
+   on uniform-noise maps, end to end; host wall and the stream's time
+   between CUDA events), one launch of the dense refine and of the
+   grouping a ``decode_batch`` call; each stage's card busy time under the
+   profiler beside its host wall; its sparse and noise maps alone: one
+   launch each a call, the refine equal to its plain version on the batch
+   and the grouping on the batch of sparse maps and the first noise image,
+   no more persons than the cap, the kernels' times and bounds on the
+   batch, valid candidate rows and persons an image; ``bin.bench_train`` for keypoints (W32 bs36
+   512^2 bfloat16 Adam, 5 + 5 steps) and classification (W32 bs80 224^2
+   SGD, 10 + 10): img/s, ms a step, finite losses, peak memory, beside
+   phases 9 and 12's bfloat16 steps; no kernel launched in training
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a card the script exits non-zero
@@ -248,7 +263,8 @@ same two kernels; without phase 10 in the process it measures phase 10's
 steady step itself), ``--classification-only`` for phase 12 (which
 builds no kernel), ``--serve-only`` for phase 13, ``--zoo-only`` for
 phase 14, ``--dp-train-only`` for phase 15 and ``--sharded-eval-only`` for
-phase 16 (each the dense refine and the grouping).
+phase 16 (each the dense refine and the grouping); ``--model-parallel-only``
+and ``--bench-only`` run phases 17 and 18 alike.
 """
 
 from __future__ import annotations
@@ -1693,9 +1709,13 @@ def eval_phase(dev, counted, smi: str) -> dict:
 def path_kernel_times(fn) -> dict:
     """The dense refine's and the grouping's shapes, times (CUDA events)
     and bounds on the inputs of their last launch in ``fn()``."""
+    return kernel_times(record_kernel_inputs(fn))
+
+
+def kernel_times(seen: dict) -> dict:
+    """``path_kernel_times`` on inputs already kept by ``record_kernel_inputs``."""
     from human_pose_tpu_torch.ops import cuda_decode, cuda_match
 
-    seen = record_kernel_inputs(fn)
     hm, tg, prev, cnt = seen["refine_argmax"]
     cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
     return {
@@ -5356,6 +5376,181 @@ def model_parallel_only(dev, smi: str) -> int:
     return 0
 
 
+# phase 18, the benchmark CLIs at their defaults: bench_decompose (W32, batch
+# 8 at 512^2, 10 iterations a pass, a warm-up pass and a timed one) and
+# bench_train (keypoints bs36 512^2 Adam, 5 + 5 steps; classification bs80
+# 224^2 SGD, 10 + 10 steps)
+BENCH_BATCH, BENCH_ITERS = 8, 10
+BENCH_DECODE_STAGES = ("decode_sparse", "decode_noise", "e2e")  # a decode_batch call an iteration
+# images of each map set whose grouping is held against the plain version:
+# the whole batch of the sparse maps (~0.35 s an image plain), the first
+# image of the noise maps (~4 s an image plain: every joint's 30 rows valid)
+BENCH_MATCH_HELD = {"decode_sparse": BENCH_BATCH, "decode_noise": 1}
+
+
+def bench_stage_kernels(stage: str, maps: tuple, counted, smi: str) -> dict:
+    """One decode stage of ``bench_decompose`` on its batch of maps: one
+    launch each of the dense refine and the grouping a ``decode_maps``
+    call, with their inputs kept; on those inputs the refine equals its
+    plain version on the whole batch, the grouping on the first
+    ``BENCH_MATCH_HELD[stage]`` images, and no image holds more persons than
+    the cap; the kernels' times and bounds on the batch's inputs, the plain
+    refine's time, the plain grouping's on the held images; valid candidate
+    rows and persons per image."""
+    import torch
+
+    from human_pose_tpu_torch.bin import bench_decompose
+    from human_pose_tpu_torch.ops import cuda_decode, cuda_match
+
+    out = []
+    seen, launches = counted(lambda: record_kernel_inputs(lambda: out.append(bench_decompose.decode_maps(
+        *maps, SIZE))), f"bench {stage} (batch {BENCH_BATCH})", {"match_by_tag": 1, "refine_argmax": 1})
+    joints, scores, valid = out[0]
+    if not (bool(torch.isfinite(joints).all()) and bool(torch.isfinite(scores).all())):
+        raise AssertionError(f"bench {stage}: non-finite joints or scores")
+    ref_in = seen["refine_argmax"]
+    cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
+    refine_equal = torch.equal(cuda_decode.refine_argmax_batch(*ref_in),
+                               cuda_decode.refine_argmax_batch_plain(*ref_in))
+    held = BENCH_MATCH_HELD[stage]
+    t0 = time.perf_counter()
+    plain = cuda_match.match_by_tag_batched_plain(cand[:held], det_thr, tag_thr, order, persons)
+    torch.cuda.synchronize()
+    match_plain_ms = (time.perf_counter() - t0) * 1e3
+    got = cuda_match.match_by_tag_batched(cand, det_thr, tag_thr, order, persons)
+    match_equal = all(torch.equal(a[:held], b) for a, b in zip(got, plain))
+    count = int(got[1].max())
+    if not (refine_equal and match_equal and count <= persons):
+        raise AssertionError(f"bench {stage}: refine == plain on the batch {refine_equal}, grouping "
+                             f"== plain on {held} image(s) {match_equal}, {count} persons against a "
+                             f"cap of {persons}")
+    rec = {"launches": launches, "persons_per_image": valid.sum(1).tolist(),
+           "valid_rows_per_image": (cand[..., 2] > DET_THR).sum((1, 2)).tolist(),
+           "person_cap": persons, "refine_held_images": cand.shape[0], "match_held_images": held,
+           **kernel_times(seen),
+           "refine_plain_ms": cuda_ms(lambda: cuda_decode.refine_argmax_batch_plain(*ref_in), iters=2),
+           "match_plain_ms_held_images": match_plain_ms,
+           "match_bound_by": match_bound(cand, persons)[1],
+           "refine_bound_by": refine_bound(*ref_in)[1]}
+    log(f"bench {stage}: persons per image {rec['persons_per_image']}, valid candidate rows per "
+        f"image {rec['valid_rows_per_image']} of {K * M}; refine == plain on all {cand.shape[0]} "
+        f"images, grouping == plain on {held} (plain {match_plain_ms:.0f} ms), at most {count} "
+        f"persons (cap {persons}); batch of {BENCH_BATCH}: refine {rec['refine_ms']:.4f} ms (bound "
+        f"{rec['refine_bound_ms']:.4f}, plain {rec['refine_plain_ms']:.2f}), grouping "
+        f"{rec['match_ms']:.4f} ms  [{smi}]")
+    return rec
+
+
+# a decode stage's trace is whole only if it holds the two kernels each
+# decode_batch call launches once (a trace has been seen to lose them)
+BENCH_TRACE_KERNELS = ("refine kernel", "grouping kernel")
+
+
+def bench_busy(dev, smi: str) -> dict:
+    """Each ``bench_decompose`` stage's one iteration at its defaults (the
+    CLI's own stage functions): the host wall of a call ended by a sync
+    (median of 3) and the card's busy time under the profiler (the sum of
+    its kernels' time, ``profile_breakdown``), each an image, and the busy
+    share. A decode stage is profiled again, up to 3 times in all, until
+    its trace holds ``BENCH_TRACE_KERNELS``; ``trace_whole`` says if it
+    did (None for the forward, which has no kernel to look for). Raises if
+    the profiler saw no device time."""
+    import torch
+
+    from human_pose_tpu_torch.bin import bench_decompose
+
+    out = {}
+    for stage, fn in bench_decompose.stage_fns(BENCH_BATCH, SIZE, dev).items():
+        wall = host_ms(lambda: (fn(0), torch.cuda.synchronize()), iters=3)
+        want = () if stage == "forward" else BENCH_TRACE_KERNELS
+        for attempt in range(1, 4):
+            log(f"profile of one bench_decompose {stage} iteration (batch {BENCH_BATCH}), attempt {attempt}:")
+            busy, groups = profile_breakdown(lambda: fn(0))
+            if busy is None:
+                raise AssertionError(f"bench {stage}: the profiler saw no device time")
+            if all(g in groups for g in want):
+                break
+        whole = all(g in groups for g in want) if want else None
+        out[stage] = {"wall_ms_per_img": wall / BENCH_BATCH, "busy_ms_per_img": busy / BENCH_BATCH,
+                      "busy_share": busy / wall, "trace_whole": whole, "attempts": attempt,
+                      "busy_groups_ms": groups}
+        log(f"bench {stage}: {wall / BENCH_BATCH:.3f} ms an image host wall with a sync, the card "
+            f"busy {busy / BENCH_BATCH:.3f} ms an image ({busy / wall:.1%}); trace whole: {whole} "
+            f"after {attempt} attempt(s)  [{smi}]")
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_phase(dev, counted, smi: str, phase9: dict | None = None,
+                phase12: dict | None = None) -> dict:
+    """Phase 18: the benchmark CLIs through their ``main``. (1)
+    ``bench_decompose`` at its defaults with every counter zeroed: its four
+    records in order, finite, and one launch each of the dense refine and
+    the grouping per ``decode_batch`` call (three stages, two passes of
+    ``BENCH_ITERS``); each stage's busy share (``bench_busy``); (2) its two
+    map sets alone (``bench_stage_kernels``);
+    (3) ``bench_train`` for keypoints and for classification at their
+    defaults, no kernel launched: the records, finite losses, the peak
+    memory, set beside phases 9 and 12's bfloat16 steps where this process
+    ran them. Raises on any miss; returns the phase's record."""
+    import torch
+
+    from human_pose_tpu_torch.bin import bench_decompose, bench_train
+
+    t_phase = time.perf_counter()
+    calls = len(BENCH_DECODE_STAGES) * 2 * BENCH_ITERS
+    records, launches = counted(
+        lambda: bench_decompose.main([f"--batch={BENCH_BATCH}", f"--iters={BENCH_ITERS}",
+                                      f"--size={SIZE}"]),
+        f"bin.bench_decompose (W32 bs{BENCH_BATCH} {SIZE}^2, {BENCH_ITERS} iterations a pass)",
+        {"match_by_tag": calls, "refine_argmax": calls})
+    if ([r["stage"] for r in records] != list(bench_decompose.STAGES)
+            or not all(np.isfinite(r[key]) and r[key] > 0 for r in records
+                       for key in ("ms_per_img", "img_per_s", "device_ms_per_img"))
+            or any(r["platform"] != "gpu" for r in records)):
+        raise AssertionError(f"bench_decompose records: {records}")
+    out = {"card": smi, "decompose": {r["stage"]: r for r in records}, "launches": launches}
+    log("bin.bench_decompose: " + "; ".join(
+        f"{r['stage']} {r['ms_per_img']:.3f} ms an image host wall ({r['img_per_s']:.1f} img/s), "
+        f"{r['device_ms_per_img']:.3f} by events" for r in records) + f"  [{smi}]")
+    out["busy"] = bench_busy(dev, smi)
+    maps = bench_decompose.bench_maps(BENCH_BATCH, SIZE, dev)
+    out["stages"] = {stage: bench_stage_kernels(stage, m, counted, smi) for stage, m in maps.items()}
+    del maps
+
+    ref = {"keypoints": (phase9 or {}).get("bfloat16", {}).get("ms"),
+           "classification": ((phase12 or {}).get("steps") or {}).get("bfloat16", {}).get("ms")}
+    out["train"] = {}
+    for task in ("keypoints", "classification"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec, _ = counted(lambda: bench_train.main([f"--task={task}"]), f"bin.bench_train {task}", {})
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["phase_step_ms"] = ref[task]
+        if not (np.isfinite(rec["loss"]) and rec["value"] > 0 and rec["platform"] == "gpu"):
+            raise AssertionError(f"bench_train {task}: {rec}")
+        out["train"][task] = rec
+        beside = "not run in this process" if ref[task] is None else f"{ref[task]:.1f} ms"
+        log(f"bin.bench_train {task}: {rec['metric']}: {rec['value']:.2f} img/s, "
+            f"{rec['ms_per_step']:.1f} ms a step, loss {rec['loss']:.6f}, peak {rec['peak_gib']:.2f} GiB; "
+            f"phase {9 if task == 'keypoints' else 12}'s bfloat16 step: {beside}  [{smi}]")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 18 (the benchmark CLIs): {out['seconds']:.1f}s")
+    return out
+
+
+def bench_only(dev, smi: str) -> int:
+    """Phase 18 alone: build the dense refine and the grouping, then the
+    phase. Prints the phase's record as one JSON object last."""
+    from human_pose_tpu_torch.ops import _build
+
+    log(f"build: per kernel {_build.build_kernels(('refine_argmax', 'match_by_tag'))}")
+    counted = make_counted(kernel_counters())
+    print(json.dumps({"bench": bench_phase(dev, counted, smi)}), flush=True)
+    return 0
+
+
 def refine_only(dev, rng, smi: str) -> int:
     """The short loop for the dense refine: build, SASS counts, parity, then
     its time on the main path's and the dense scene's inputs and over a
@@ -5656,6 +5851,9 @@ def main() -> int:
     parser.add_argument("--model-parallel-only", action="store_true",
                         help="build the decode's two kernels and run phase 17 (the pipeline, the "
                              "pipelined inference model, the mesh step) alone")
+    parser.add_argument("--bench-only", action="store_true",
+                        help="build the decode's two kernels and run phase 18 (bench_decompose and "
+                             "bench_train through their main) alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -5719,6 +5917,8 @@ def main() -> int:
         return sharded_eval_only(dev, smi)
     if args.model_parallel_only:
         return model_parallel_only(dev, smi)
+    if args.bench_only:
+        return bench_only(dev, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -5962,6 +6162,9 @@ def main() -> int:
     # 17. model parallelism: the pipeline, the pipelined inference model, the mesh step
     parallel_rec = parallel_phase(dev, model, counted, smi)
 
+    # 18. the benchmark CLIs
+    bench_rec = bench_phase(dev, counted, smi, train_rec, cls_rec)
+
     # each kernel on the exact inputs its path gave it
     main_in = record_kernel_inputs(lambda: infer(images))
     dense_in = record_kernel_inputs(decode_dense)
@@ -5978,7 +6181,8 @@ def main() -> int:
              "zoo": zoo_rec["launches"],
              "zoo_train_val": dp_rec["launches"],
              "sharded_eval": sharded_rec["launches"],
-             "pipeline": parallel_rec["launches"]}
+             "pipeline": parallel_rec["launches"],
+             "bench_decompose": bench_rec["launches"]}
 
     def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
         return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
@@ -6007,7 +6211,9 @@ def main() -> int:
         zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("refine")},
         zoo_train_val={k_: v for k_, v in dp_rec["cli"].items() if k_.startswith("refine")},
         sharded_eval={k_: v for k_, v in sharded_rec["eval"]["kernels"].items() if k_.startswith("refine")},
-        pipeline={k_: v for k_, v in parallel_rec["inference"].items() if k_.startswith("refine")}))
+        pipeline={k_: v for k_, v in parallel_rec["inference"].items() if k_.startswith("refine")},
+        bench={stage: {k_: v for k_, v in r.items() if k_.startswith("refine")}
+               for stage, r in bench_rec["stages"].items()}))
     cand, _, _, order, persons = main_in["match_by_tag"]
     # the plain grouping runs one image after another (~4 s an image on the
     # card): timed on the first MATCH_PLAIN_IMAGES images, the kernel too
@@ -6032,7 +6238,9 @@ def main() -> int:
         zoo_ae_hourglass={k_: v for k_, v in zoo_rec["ae_hourglass"].items() if k_.startswith("match")},
         zoo_train_val={k_: v for k_, v in dp_rec["cli"].items() if k_.startswith("match")},
         sharded_eval={k_: v for k_, v in sharded_rec["eval"]["kernels"].items() if k_.startswith("match")},
-        pipeline={k_: v for k_, v in parallel_rec["inference"].items() if k_.startswith("match")}))
+        pipeline={k_: v for k_, v in parallel_rec["inference"].items() if k_.startswith("match")},
+        bench={stage: {k_: v for k_, v in r.items() if k_.startswith("match")}
+               for stage, r in bench_rec["stages"].items()}))
     kernels.append(row(
         "match_by_tag_per_image", "per_image", "exact joints and count; equal to match_by_tag",
         cuda_ms(lambda: cuda_match.match_by_tag_per_image(cand_s, DET_THR, TAG_THR, order_s, persons_s),
@@ -6113,6 +6321,7 @@ def main() -> int:
     print(json.dumps({"dp_train": dp_rec}), flush=True)
     print(json.dumps({"sharded_eval": sharded_rec}), flush=True)
     print(json.dumps({"model_parallel": parallel_rec}), flush=True)
+    print(json.dumps({"bench": bench_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

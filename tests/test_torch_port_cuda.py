@@ -17,6 +17,7 @@ intermediate value at a bf16 rounding boundary can round either way.
 from __future__ import annotations
 
 import copy
+import json
 
 import numpy as np
 import pytest
@@ -1805,3 +1806,85 @@ def test_mesh_of_one_nccl_step_bit_equal(dev):
         assert m_mesh == m_plain
         assert sd_mesh.keys() == sd_plain.keys()
         assert all(torch.equal(v, sd_mesh[k]) for k, v in sd_plain.items())
+
+
+# -- the benchmark CLIs ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("stage", ["decode_sparse", "decode_noise"])
+def test_bench_decode_kernels_equal_plain_at_512(dev, stage):
+    """``bench_decompose``'s maps for one image at 512^2 (GT-like sparse
+    peaks; uniform noise, where all 30 candidates of every joint clear
+    det_thr): one launch each of the dense refine and the grouping, and each
+    kernel's outputs on that call's inputs equal to its plain version's."""
+    import chip_smoke
+    from human_pose_tpu_torch.bin import bench_decompose
+
+    maps = bench_decompose.bench_maps(1, 512, dev)[stage]
+    before = (refine_argmax_batch.launches, match_by_tag_batched.launches)
+    out = []
+    seen = chip_smoke.record_kernel_inputs(lambda: out.append(bench_decompose.decode_maps(*maps, 512)))
+    torch.cuda.synchronize()
+    assert (refine_argmax_batch.launches - before[0], match_by_tag_batched.launches - before[1]) == (1, 1)
+    joints, _, valid = out[0]
+    assert bool(torch.isfinite(joints).all()) and int(valid.sum()) >= 1
+    hm, tg, prev, cnt = seen["refine_argmax"]
+    assert torch.equal(refine_argmax_batch(hm, tg, prev, cnt), refine_argmax_batch_plain(hm, tg, prev, cnt))
+    cand, det_thr, tag_thr, order, persons = seen["match_by_tag"]
+    if stage == "decode_noise":
+        assert int((cand[..., 2] > det_thr).sum()) == cand.shape[1] * cand.shape[2]
+    got = match_by_tag_batched(cand, det_thr, tag_thr, order, persons)
+    want = match_by_tag_batched_plain(cand, det_thr, tag_thr, order, persons)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and int(got[1].max()) <= persons
+
+
+def test_remat_step_equals_plain_step_on_card(dev):
+    """A bfloat16 Adam step of HigherHRNet C=8 with ``remat=(0, 4)`` on
+    ``bench_train``'s synthesized batch (2 at 128^2) equals the step without
+    remat bit for bit under cuDNN deterministic: metrics, parameters and
+    BatchNorm statistics (the recompute leaves them to move once)."""
+    from human_pose_tpu_torch.bin import bench_train
+    from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
+    from human_pose_tpu_torch.train import TrainState, create_optimizer, keypoints_train_step
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    runs = []
+    try:
+        for remat in (False, (0, 4)):
+            model = HigherHRNet(num_kpts=17, C=8, remat=remat, device=dev)
+            init_flax_default_(model, torch.Generator().manual_seed(0))
+            state = TrainState.create(model, create_optimizer(model.parameters(), "Adam", 1e-3),
+                                      dtype=torch.bfloat16, device=dev)
+            metrics = keypoints_train_step(state, bench_train.synth_batch(0, 2, 128, dev), 1e-3)[1]
+            runs.append(({k: float(v) for k, v in metrics.items()},
+                         {k: v.cpu() for k, v in model.state_dict().items()}))
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    (m_plain, sd_plain), (m_remat, sd_remat) = runs
+    assert m_remat == m_plain and all(np.isfinite(v) for v in m_plain.values())
+    assert all(torch.equal(v, sd_remat[k]) for k, v in sd_plain.items())
+
+
+def test_bench_train_classification_on_card(dev, capsys):
+    """``bin.bench_train --task=classification`` (W32, SGD nesterov) at a
+    small batch on the card: one finite record on the gpu platform."""
+    from human_pose_tpu_torch.bin import bench_train
+
+    rec = bench_train.main(["--task=classification", "--batch=8", "--size=64", "--iters=2"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
+    assert rec["metric"] == "train images/sec ClassificationHRNet-W32 @64 (bs 8, 1 devices)"
+    assert rec["platform"] == "gpu" and all(np.isfinite(rec[k]) and rec[k] > 0
+                                            for k in ("value", "ms_per_step", "loss"))
+
+
+def test_bench_decompose_cli_on_card(dev, capsys):
+    """``bin.bench_decompose`` at a small size on the card: its four records
+    in order, each with the events' device ms, finite."""
+    from human_pose_tpu_torch.bin import bench_decompose
+
+    recs = bench_decompose.main(["--batch=2", "--iters=2", "--size=128"])
+    assert [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()] == recs
+    assert [r["stage"] for r in recs] == list(bench_decompose.STAGES)
+    assert all(r["platform"] == "gpu" and np.isfinite(r["device_ms_per_img"]) and r["ms_per_img"] > 0
+               for r in recs)

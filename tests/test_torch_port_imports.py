@@ -46,7 +46,8 @@ def test_package_imports_with_jax_blocked():
     export (their CLIs, the flag parser, model info), the model zoo (its
     nets, the SPPE decode, MPII and PCKh), data parallelism, the directory
     checkpoint backend and the reader of JAX trainer checkpoints (with
-    orbax and msgpack unimportable too)."""
+    orbax and msgpack unimportable too), the training and decomposition
+    benchmarks."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'human_pose_tpu', 'orbax', 'msgpack'): sys.modules[m] = None\n"
@@ -71,6 +72,7 @@ def test_package_imports_with_jax_blocked():
         "import human_pose_tpu_torch.metrics.pckh\n"
         "import human_pose_tpu_torch.parallel, human_pose_tpu_torch.parallel.distributed\n"
         "import human_pose_tpu_torch.train.checkpoint_orbax, human_pose_tpu_torch.utils.flax_msgpack\n"
+        "import human_pose_tpu_torch.bin.bench_train, human_pose_tpu_torch.bin.bench_decompose\n"
         "print('ok')\n"
     )
     res = _run(code, ROOT)
