@@ -5506,13 +5506,13 @@ def bench_phase(dev, counted, smi: str, phase9: dict | None = None,
         {"match_by_tag": calls, "refine_argmax": calls})
     if ([r["stage"] for r in records] != list(bench_decompose.STAGES)
             or not all(np.isfinite(r[key]) and r[key] > 0 for r in records
-                       for key in ("ms_per_img", "img_per_s", "device_ms_per_img"))
+                       for key in ("ms_per_img", "img_per_s", "stream_ms_per_img"))
             or any(r["platform"] != "gpu" for r in records)):
         raise AssertionError(f"bench_decompose records: {records}")
     out = {"card": smi, "decompose": {r["stage"]: r for r in records}, "launches": launches}
     log("bin.bench_decompose: " + "; ".join(
         f"{r['stage']} {r['ms_per_img']:.3f} ms an image host wall ({r['img_per_s']:.1f} img/s), "
-        f"{r['device_ms_per_img']:.3f} by events" for r in records) + f"  [{smi}]")
+        f"{r['stream_ms_per_img']:.3f} by events" for r in records) + f"  [{smi}]")
     out["busy"] = bench_busy(dev, smi)
     maps = bench_decompose.bench_maps(BENCH_BATCH, SIZE, dev)
     out["stages"] = {stage: bench_stage_kernels(stage, m, counted, smi) for stage, m in maps.items()}

@@ -27,7 +27,7 @@ CUDA events) is read; iteration ``i`` perturbs the input by ``i * 1e-4``
 iteration are part of what is timed. A NaN in the accumulated sum raises.
 
 Prints one JSON line per stage: {"stage", "ms_per_img", "img_per_s",
-"platform"} and, on the card, "device_ms_per_img": the stream's time
+"platform"} and, on the card, "stream_ms_per_img": the stream's time
 between two CUDA events recorded at the window's ends, an image. That is
 wall time on the card's clock, not the time its kernels were busy: it
 equals the host wall whenever the host holds the card back.
@@ -188,11 +188,11 @@ def main(argv: list[str] | None = None) -> list[dict]:
     records = []
 
     def report(stage: str, fn) -> None:
-        dt, device_ms = timed(fn, iters, dev)
+        dt, stream_ms = timed(fn, iters, dev)
         n = batch * iters
         rec = {"stage": stage, "ms_per_img": dt / n * 1e3, "img_per_s": n / dt, "platform": platform}
-        if device_ms is not None:
-            rec["device_ms_per_img"] = device_ms / n
+        if stream_ms is not None:
+            rec["stream_ms_per_img"] = stream_ms / n
         print(json.dumps(rec), flush=True)
         records.append(rec)
 

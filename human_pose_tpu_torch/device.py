@@ -1,6 +1,9 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and constants kept on a
+device."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -16,3 +19,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``values`` (a number or a tuple) as a ``dtype`` tensor on ``device``,
+    made once per (values, dtype, device) and shared by every caller, which
+    must not write to it: a tensor made from host values on each call is a
+    host->device copy from pageable memory, which waits for the stream."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -25,12 +25,13 @@ from ..constants import PAD_PIXEL_U8
 from ..data.affine import resize_align_multi_scale
 from ..data.coco import COCO_LIMBS
 from ..data.transforms import ClassificationTransform, inverse_normalize, normalize
-from ..device import resolve_device
+from ..device import constant, resolve_device
 from ..ops.decode import decode_batch
 from ..ops.flip import flip_back, merge_flip_heatmaps
 from ..ops.heatmaps import average_stages, resize_bilinear
 from ..ops.images import prep_images
 from ..ops.sppe import sppe_parse
+from ..utils.profiling import span
 from ..utils.weights import read_state_dict
 from .results import ClassificationResult, InferenceKeypointsResult
 
@@ -68,7 +69,7 @@ def mask_pad_region(avg: torch.Tensor, valid_hw) -> torch.Tensor:
     yy = torch.arange(avg.shape[2], device=avg.device)[:, None]
     xx = torch.arange(avg.shape[3], device=avg.device)[None, :]
     return torch.where((yy < vh) & (xx < vw), avg,
-                       torch.tensor(-1e4, dtype=avg.dtype, device=avg.device))
+                       constant(-1e4, avg.dtype, avg.device))
 
 
 def _pipeline_microbatch(total: int, n_segments: int) -> int:
@@ -164,6 +165,7 @@ class InferenceKeypointsModel:
         return tree_to(self._pipe(x, microbatch_size=mb), self.device)
 
     @torch.no_grad()
+    @span("infer.forward")
     def forward_scale(self, x: torch.Tensor, hw: tuple):
         """One multi-scale pass on ``x`` (``[N, 3, H, W]`` on the model's
         device, uint8 or float): forward (+flip), aggregate stages, resize to
@@ -174,17 +176,18 @@ class InferenceKeypointsModel:
         x = prep_images(x)
         n = x.shape[0]
         forward = self._forward if self._pipe is None else self._pipelined
-        if self.use_flip:
-            stages_hms, tags = forward(torch.cat([x, x.flip(3)]))
-            stages_hms = [merge_flip_heatmaps(h[:n], h[n:]) for h in stages_hms]
-            tags_list = [tags[:n], flip_back(tags[n:])]
-        else:
-            stages_hms, tags = forward(x)
-            tags_list = [tags]
-        avg = resize_bilinear(average_stages(stages_hms), *hw)
-        return avg, [resize_bilinear(t, *hw) for t in tags_list]
+        stages_hms, tags = forward(torch.cat([x, x.flip(3)]) if self.use_flip else x)
+        with span("infer.merge"):
+            if self.use_flip:
+                stages_hms = [merge_flip_heatmaps(h[:n], h[n:]) for h in stages_hms]
+                tags_list = [tags[:n], flip_back(tags[n:])]
+            else:
+                tags_list = [tags]
+            avg = resize_bilinear(average_stages(stages_hms), *hw)
+            return avg, [resize_bilinear(t, *hw) for t in tags_list]
 
     @torch.no_grad()
+    @span("infer.decode")
     def decode_masked(self, avg_sum, tags_list, hw, n_scales, valid_hw=None):
         """Average the scale sum, mask the bucket pad region and decode.
         ``valid_hw``: None (no pad region), ``(h, w)`` for every image, or
@@ -195,7 +198,7 @@ class InferenceKeypointsModel:
         # a true division on every device: a Python-scalar divisor makes
         # PyTorch's CUDA kernel multiply by its reciprocal, an ulp off the
         # CPU's (and JAX's) quotient for 3 scales
-        avg = avg_sum / torch.tensor(n_scales, dtype=avg_sum.dtype, device=avg_sum.device)
+        avg = avg_sum / constant(float(n_scales), avg_sum.dtype, avg_sum.device)
         if valid_hw is not None and (torch.is_tensor(valid_hw) or tuple(valid_hw) != tuple(hw)):
             avg = mask_pad_region(avg, valid_hw)
         joints, scores, valid = decode_batch(
@@ -242,6 +245,7 @@ class InferenceKeypointsModel:
                 x = np.pad(x, ((0, 0), (0, ph - h), (0, pw - w), (0, 0)))
         return x, center, scale
 
+    @span("infer.to_device")
     def to_device(self, xs: np.ndarray) -> torch.Tensor:
         """A host ``[N, H, W, 3]`` batch as ``[N, 3, H, W]`` on the model's
         device: uint8 stays uint8 (normalized on the device), floats as

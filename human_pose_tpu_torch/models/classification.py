@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .hrnet import Bottleneck, HRNetBackbone
 from .norm import batch_norm
 
@@ -73,4 +74,6 @@ class ClassificationHRNet(nn.Module):
         self.to(dev)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        return self.classification_head(self.backbone(images))
+        feats = self.backbone(images)
+        with span("net.head"):
+            return self.classification_head(feats)

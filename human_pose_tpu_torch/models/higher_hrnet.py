@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .hrnet import BasicBlock, HRNetBackbone, rematerialized, remat_selection
 from .norm import batch_norm
 
@@ -73,6 +74,7 @@ class HigherHRNet(nn.Module):
     def forward(self, images: torch.Tensor):
         return self.head(self.backbone(images)[0])
 
+    @span("net.head")
     def head(self, feats: torch.Tensor):
         """``init_heatmaps_head`` and the deconv head on the backbone's 1/4
         map ``feats``: ``([hm_quarter, hm_half], tags)`` in float32."""

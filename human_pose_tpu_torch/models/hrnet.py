@@ -28,6 +28,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .norm import batch_norm, frozen_running_stats
 
 # remat index of the stem (two stride-2 convs); 0-3 are the stages
@@ -243,6 +244,12 @@ def stage_configs(C: int, num_blocks_per_stage: Sequence[int] = (1, 1, 4, 3),
     ]
 
 
+# the backbone's stages as profiler spans (``utils.profiling.span``): the
+# stem's convolutions with stage 1, then stages 2-4, each with the
+# transition that ends it
+STAGE_SPANS = ("net.stem", "net.stage2", "net.stage3", "net.stage4")
+
+
 class HRNetBackbone(nn.Module):
     """4-stage HRNet. Returns per-scale NCHW maps at 1/4..1/32 of the input
     with C..8C channels, or a single 1/4-scale map when
@@ -274,9 +281,11 @@ class HRNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor) -> list:
         remat = self.remat if self.training else ()
-        xs = [rematerialized(self.stem, x) if STEM in remat else self.stem(x)]
         for s, stage in enumerate(self.stages):
-            xs = rematerialized(stage, xs) if s in remat else stage(xs)
+            with span(STAGE_SPANS[s]):
+                if s == 0:
+                    xs = [rematerialized(self.stem, x) if STEM in remat else self.stem(x)]
+                xs = rematerialized(stage, xs) if s in remat else stage(xs)
         return xs
 
 

@@ -19,10 +19,10 @@ on CPU tensors.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
+from ..device import constant
 from .hungarian import hungarian
 
 MAX_M = 32  # candidates per joint: one row per lane of the kernel's warp
@@ -101,13 +101,6 @@ def match_by_tag_batched_plain(cand_ordered: torch.Tensor, det_thr: float, tag_t
     return joints, count
 
 
-@functools.lru_cache(maxsize=None)
-def _order_on(joints_order: tuple, device: str) -> torch.Tensor:
-    """The joint order as an int32 device tensor, made once per (order,
-    device): a fresh host->device copy per call would stall the stream."""
-    return torch.tensor(joints_order, dtype=torch.int32, device=device)
-
-
 def _checked(cand_ordered: torch.Tensor, joints_order, num_persons: int | None):
     """``(P, E)`` of a grouping call, after the checks both entries share."""
     b, k, m, f = cand_ordered.shape
@@ -131,7 +124,7 @@ def _launch(cand_ordered: torch.Tensor, det_thr: float, tag_thr: float, joints_o
 
     lib = load_kernel("match_by_tag")
     dev = cand_ordered.device
-    order = _order_on(tuple(joints_order), str(dev))
+    order = constant(tuple(joints_order), torch.int32, dev)
     joints = torch.empty((b, p, k, f), dtype=torch.float32, device=dev)
     count = torch.empty((b,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .cuda_aggregate import fused_aggregate
 from .grouping import (
     _top_k, adjust_phase, group_from_candidates, parse_batch, refine_batch_phase,
@@ -45,11 +46,12 @@ def decode_batch(stages_kpts_heatmaps: list, tags_heatmaps_list: list, input_hw:
       ``valid [N, P]`` bool.
     """
     h, w = input_hw
-    stages = [x.to(torch.float32) for x in stages_kpts_heatmaps]
-    kpts = resize_bilinear(average_stages(stages), h, w)  # [N, K, H, W]
-    tags = torch.stack(
-        [resize_bilinear(t.to(torch.float32), h, w) for t in tags_heatmaps_list], dim=2
-    )  # [N, K, E, H, W]
+    with span("decode.resize"):
+        stages = [x.to(torch.float32) for x in stages_kpts_heatmaps]
+        kpts = resize_bilinear(average_stages(stages), h, w)  # [N, K, H, W]
+        tags = torch.stack(
+            [resize_bilinear(t.to(torch.float32), h, w) for t in tags_heatmaps_list], dim=2
+        )  # [N, K, E, H, W]
     return parse_batch(
         kpts, tags, max_num_people=max_num_people, det_thr=det_thr, tag_thr=tag_thr,
         do_adjust=do_adjust, do_refine=do_refine,
@@ -85,34 +87,39 @@ def decode_batch_fused(stages_kpts_heatmaps: list, tags_heatmaps_list: list, inp
     where the two resize formulations give the same values; F.interpolate
     and the phase lerps may differ by an ulp elsewhere."""
     _check_fused_shapes(stages_kpts_heatmaps, tags_heatmaps_list, input_hw, max_num_people)
-    q = stages_kpts_heatmaps[0].to(torch.float32).contiguous()
-    h2 = stages_kpts_heatmaps[1].to(torch.float32).contiguous()
-    tags_lo = torch.stack([t.to(torch.float32) for t in tags_heatmaps_list], dim=2).contiguous()
+    with span("decode.resize"):
+        q = stages_kpts_heatmaps[0].to(torch.float32).contiguous()
+        h2 = stages_kpts_heatmaps[1].to(torch.float32).contiguous()
+        tags_lo = torch.stack([t.to(torch.float32) for t in tags_heatmaps_list],
+                              dim=2).contiguous()
+        avg_phase, sup_phase, cmax = fused_aggregate(q, h2)
     b, k, h4, w4 = q.shape
     w = 4 * w4
     m = max_num_people
 
-    avg_phase, sup_phase, cmax = fused_aggregate(q, h2)
+    with span("decode.topk"):
+        # exact top-M with one image row as the chunk (as _chunked_top_k): the
+        # M rows of largest maxima, kept in ascending order, then an exact
+        # top-M over their values, so ties go to the lowest flat index
+        _, row_ids = _top_k(cmax.transpose(2, 3).reshape(b, k, 4 * h4), m)
+        row_ids, _ = torch.sort(row_ids, dim=-1)  # [B, K, M]
+        xs = torch.arange(w, device=q.device)
+        gidx = phase_index(row_ids[..., None], xs, h4, w4).reshape(b, k, m * w)
+        rows = torch.gather(sup_phase.reshape(b, k, -1), 2, gidx)
+        scores_k, pos = _top_k(rows, m)
+        x = pos % w
+        y = torch.gather(row_ids, 2, pos // w)
+        coords_k = torch.stack([x, y], dim=-1).to(torch.int32)
+        tags_k = sample_tags_bilinear(tags_lo, y, x)  # [B, K, M, E]
 
-    # exact top-M with one image row as the chunk (as _chunked_top_k): the M
-    # rows of largest maxima, kept in ascending order, then an exact top-M
-    # over their values, so ties go to the lowest flat index
-    _, row_ids = _top_k(cmax.transpose(2, 3).reshape(b, k, 4 * h4), m)
-    row_ids, _ = torch.sort(row_ids, dim=-1)  # [B, K, M]
-    xs = torch.arange(w, device=q.device)
-    gidx = phase_index(row_ids[..., None], xs, h4, w4).reshape(b, k, m * w)
-    rows = torch.gather(sup_phase.reshape(b, k, -1), 2, gidx)
-    scores_k, pos = _top_k(rows, m)
-    x = pos % w
-    y = torch.gather(row_ids, 2, pos // w)
-    coords_k = torch.stack([x, y], dim=-1).to(torch.int32)
-    tags_k = sample_tags_bilinear(tags_lo, y, x)  # [B, K, M, E]
-
-    grouped, valid = group_from_candidates(tags_k, coords_k, scores_k,
-                                           det_thr=det_thr, tag_thr=tag_thr)
+    with span("decode.group"):
+        grouped, valid = group_from_candidates(tags_k, coords_k, scores_k,
+                                               det_thr=det_thr, tag_thr=tag_thr)
     if do_adjust:
-        grouped = adjust_phase(grouped, avg_phase)
+        with span("decode.adjust"):
+            grouped = adjust_phase(grouped, avg_phase)
     person_scores = grouped[..., 2].mean(dim=2)
     if do_refine:
-        grouped = refine_batch_phase(avg_phase, tags_lo, grouped)
+        with span("decode.refine"):
+            grouped = refine_batch_phase(avg_phase, tags_lo, grouped)
     return grouped, person_scores, valid

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import constant
+
 # reference src/keypoints/transforms.py:11
 COCO_FLIP_INDEX = (0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15)
 
@@ -17,7 +19,7 @@ COCO_FLIP_INDEX = (0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15)
 def flip_back(hms: torch.Tensor, flip_index=COCO_FLIP_INDEX) -> torch.Tensor:
     """Undo a horizontal flip on ``[N, K, H, W]`` maps: mirror width and swap
     left/right keypoint channels."""
-    idx = torch.as_tensor(flip_index, device=hms.device)
+    idx = constant(tuple(int(i) for i in flip_index), torch.int64, hms.device)
     return hms.flip(3)[:, idx]
 
 

@@ -27,6 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import constant
+from ..utils.profiling import span
 from .cuda_aggregate import refine_argmax_phase_batch
 from .cuda_decode import refine_argmax_batch
 from .cuda_match import match_by_tag_batched
@@ -230,7 +232,8 @@ def group_from_candidates(tags_k, coords_k, scores_k, *, det_thr: float, tag_thr
     -> ``(grouped [B, M, K, 3+E], valid [B, M])``."""
     b, k, m, e = tags_k.shape
     order = joints_order_for(k)
-    cand = _candidates(tags_k, coords_k, scores_k)[:, list(order)].contiguous()
+    cand = _candidates(tags_k, coords_k, scores_k).index_select(
+        1, constant(order, torch.int64, tags_k.device))
     grouped, count = match_by_tag_batched(cand, det_thr, tag_thr, order, m)
     valid = torch.arange(m, device=cand.device)[None, :] < count[:, None]
 
@@ -258,15 +261,19 @@ def parse_batch(kpts_hms: torch.Tensor, tags_hms: torch.Tensor, max_num_people: 
     [B, K, E, H, W]`` float32 -> ``joints [B, P, K, 3+E]`` (x, y, score,
     tags), ``person_scores [B, P]`` (mean joint score before refine),
     ``valid [B, P]``."""
-    tags_k, coords_k, scores_k = top_k(kpts_hms, tags_hms, max_num_people)
-    grouped, valid = group_from_candidates(
-        tags_k, coords_k, scores_k, det_thr=det_thr, tag_thr=tag_thr
-    )
+    with span("decode.topk"):
+        tags_k, coords_k, scores_k = top_k(kpts_hms, tags_hms, max_num_people)
+    with span("decode.group"):
+        grouped, valid = group_from_candidates(
+            tags_k, coords_k, scores_k, det_thr=det_thr, tag_thr=tag_thr
+        )
     if do_adjust:
-        grouped = adjust(grouped, kpts_hms)
+        with span("decode.adjust"):
+            grouped = adjust(grouped, kpts_hms)
     person_scores = grouped[..., 2].mean(dim=2)
     if do_refine:
-        grouped = refine_batch(kpts_hms, tags_hms, grouped)
+        with span("decode.refine"):
+            grouped = refine_batch(kpts_hms, tags_hms, grouped)
     return grouped, person_scores, valid
 
 

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import IMAGENET_MEAN, IMAGENET_STD
+from ..device import constant
 
 
 def prep_images(images: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -14,10 +15,11 @@ def prep_images(images: torch.Tensor, out_dtype: torch.dtype | None = None) -> t
     normalized result."""
     if images.is_floating_point():
         return images
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=images.device)[:, None, None]
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=images.device)[:, None, None]
+    dev = images.device
+    mean = constant(IMAGENET_MEAN, torch.float32, dev)[:, None, None]
+    std = constant(IMAGENET_STD, torch.float32, dev)[:, None, None]
     # a true division on every device: a Python-scalar divisor makes CUDA
     # multiply by its reciprocal, an ulp off the CPU's and JAX's quotient
-    scale = torch.tensor(255.0, dtype=torch.float32, device=images.device)
+    scale = constant(255.0, torch.float32, dev)
     out = (images.to(torch.float32) / scale - mean) / std
     return out if out_dtype is None else out.to(out_dtype)

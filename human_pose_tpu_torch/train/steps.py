@@ -40,6 +40,7 @@ from ..ops.grouping import _top_k
 from ..ops.images import prep_images
 from ..parallel.mesh import all_reduce_mean_, average_gradients_, average_running_stats_
 from ..parallel.spatial import gather_rows
+from ..utils.profiling import span
 from .losses import ae_keypoints_loss, classification_loss
 from .optim import set_learning_rate
 from .state import TrainState
@@ -84,10 +85,12 @@ def _classification_backward(state: TrainState, batch: dict) -> dict:
     (micro)batch ``{"images", "labels"}``; the gradients add into ``.grad``.
     Returns the detached metrics."""
     state.model.train()
-    with _compute(state):
+    with span("train.forward"), _compute(state):
         logits = state.model(prep_images(batch["images"]))
-    loss, metrics = _classification_metrics(logits, batch["labels"])
-    loss.backward()
+    with span("train.loss"):
+        loss, metrics = _classification_metrics(logits, batch["labels"])
+    with span("train.backward"):
+        loss.backward()
     return metrics
 
 
@@ -136,15 +139,18 @@ def _keypoints_backward(state: TrainState, batch: dict) -> dict:
     backward for one (micro)batch; the gradients add into ``.grad``.
     Returns the detached metrics."""
     state.model.train()
-    with _compute(state):
+    with span("train.forward"), _compute(state):
         out = state.model(prep_images(batch["images"]))
-    if state.mesh is not None and state.mesh.dims:
-        out = (out[0], gather_rows(out[1], state.mesh))
-    total, metrics = _keypoints_losses(out, batch)
-    total.backward()
+    with span("train.loss"):
+        if state.mesh is not None and state.mesh.dims:
+            out = (out[0], gather_rows(out[1], state.mesh))
+        total, metrics = _keypoints_losses(out, batch)
+    with span("train.backward"):
+        total.backward()
     return {key: value.detach() for key, value in metrics.items()}
 
 
+@span("train.update")
 def _update(state: TrainState, lr) -> None:
     if state.mesh is not None:
         average_gradients_(state.mesh, state.model)

@@ -7,7 +7,7 @@ counted from the first step this run executes, when ``trainer.profile_dir``
 is set; each step is annotated with ``record_function`` so the trace viewer
 groups work per training step. The trace is a Chrome trace (Perfetto or
 ``chrome://tracing``) written into the directory. The JAX module has these
-three and nothing else; all three are here.
+three; all three are here, and ``span`` besides.
 
 Standalone use:
 
@@ -16,16 +16,36 @@ Standalone use:
 
     with trace("/tmp/trace"):                   # capture a window
         ...
+
+``span(name)`` marks a stage of the program (the inference model's
+``infer.*``, the networks' ``net.*``, the decode's ``decode.*``, the train
+steps' ``train.*``) in whatever ``torch.profiler`` trace is being taken, on
+the same clock as the card's kernels. With no profiler running it reads one
+flag and records nothing. Under a profiler a stage appears in three forms:
+
+* a ``_RecordFunctionFast`` range ``hp:<name>`` around its body, exported
+  with category ``cpu_op``: the bar an operator sees in Perfetto;
+* two instant marks, empty ``record_function`` blocks ``hp:<name>`` at its
+  entry and ``hp:<name>:end`` at its exit, exported as ``user_annotation``.
+
+A trace reader that charges each device operation to the innermost
+``user_annotation`` open at its launch (as ``gpubench/trace.py`` does) keeps
+charging every operation to the caller's own spans: no launch happens inside
+an empty mark, and it does not read ``cpu_op`` ranges. A ``record_function``
+range around the body would take those launches over. The marks still give
+the stage's host interval (from the entry mark to the exit mark).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from pathlib import Path
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -40,6 +60,47 @@ def trace(trace_dir: str | Path):
     out = Path(trace_dir)
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def _mark(name: str) -> None:
+    with torch.profiler.record_function(name):
+        pass
+
+
+class span:
+    """A stage of the program, ``hp:<name>`` in a profiler trace (see the
+    module's docstring); a context manager or a decorator. Free when no
+    profiler is running: the profiler's flag is read at each entry."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self) -> "span":
+        if _autograd_profiler._is_profiler_enabled:
+            name = "hp:" + self.name
+            _mark(name)
+            self._range = torch._C._profiler._RecordFunctionFast(name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        rng, self._range = self._range, None
+        if rng is not None:
+            rng.__exit__(*exc)
+            _mark(f"hp:{self.name}:end")
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return spanned
 
 
 def step_trace(name: str, step_num: int):

@@ -1880,11 +1880,82 @@ def test_bench_train_classification_on_card(dev, capsys):
 
 def test_bench_decompose_cli_on_card(dev, capsys):
     """``bin.bench_decompose`` at a small size on the card: its four records
-    in order, each with the events' device ms, finite."""
+    in order, each with the stream's ms between two CUDA events, finite."""
     from human_pose_tpu_torch.bin import bench_decompose
 
     recs = bench_decompose.main(["--batch=2", "--iters=2", "--size=128"])
     assert [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()] == recs
     assert [r["stage"] for r in recs] == list(bench_decompose.STAGES)
-    assert all(r["platform"] == "gpu" and np.isfinite(r["device_ms_per_img"]) and r["ms_per_img"] > 0
+    assert all(r["platform"] == "gpu" and np.isfinite(r["stream_ms_per_img"]) and r["ms_per_img"] > 0
                for r in recs)
+
+
+# -- no hidden waits on the benchmark cells' paths -----------------------------------------
+
+def _no_sync_paths(dev) -> dict:
+    """The program paths the benchmark cells run, as functions of nothing on
+    device inputs: ``forward_scale`` + ``decode_masked`` of a bfloat16
+    HigherHRNet-W32 (plain, and with the flip test), one keypoints and one
+    classification train step (bfloat16; Adam, SGD Nesterov) on device
+    batches of uint8 images."""
+    from human_pose_tpu_torch.inference import InferenceKeypointsModel
+    from human_pose_tpu_torch.models import ClassificationHRNet, HigherHRNet
+    from human_pose_tpu_torch.train import (
+        TrainState, classification_train_step, create_optimizer, keypoints_train_step,
+    )
+
+    torch.manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n, k, p, s = 2, 17, 30, 256
+    net = HigherHRNet(num_kpts=k, C=32, device=dev).eval()
+    frames = torch.randint(0, 256, (n, 3, s, s), dtype=torch.uint8, generator=gen, device=dev)
+    paths = {}
+    for flip in (False, True):
+        model = InferenceKeypointsModel(net, use_flip=flip, compact_inputs=True,
+                                        max_num_people=p, dtype=torch.bfloat16, device=dev)
+
+        def infer(model=model):
+            avg, tags = model.forward_scale(frames, (s, s))
+            return model.decode_masked(avg, tags, (s, s), 1.0)
+
+        paths[f"infer_flip{int(flip)}"] = infer
+    kp_net = HigherHRNet(num_kpts=k, C=32, device=dev)
+    kp_state = TrainState.create(kp_net, create_optimizer(kp_net.parameters(), "Adam", 1e-3),
+                                 dtype=torch.bfloat16, device=dev)
+    xy = torch.randint(0, s // 4, (n, p, k, 2), dtype=torch.int32, generator=gen, device=dev)
+    vis = torch.randint(0, 2, (n, p, k, 1), dtype=torch.int32, generator=gen, device=dev)
+    kp_batch = {
+        "images": frames,
+        "heatmaps": [torch.rand(n, k, s // 4, s // 4, generator=gen, device=dev),
+                     torch.rand(n, k, s // 2, s // 2, generator=gen, device=dev)],
+        "masks": [torch.ones(n, s // 4, s // 4, device=dev), torch.ones(n, s // 2, s // 2, device=dev)],
+        "joints": torch.cat([xy, vis], -1),
+    }
+    paths["keypoints_train_step"] = lambda: keypoints_train_step(kp_state, kp_batch, 1e-3)
+    cls_net = ClassificationHRNet(C=32, device=dev)
+    cls_state = TrainState.create(
+        cls_net, create_optimizer(cls_net.parameters(), "SGD", 0.1, momentum=0.9, nesterov=True),
+        dtype=torch.bfloat16, device=dev)
+    images = torch.randint(0, 256, (n, 3, 224, 224), dtype=torch.uint8, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (n,), generator=gen, device=dev)
+    paths["classification_train_step"] = lambda: classification_train_step(cls_state, images, labels, 0.1)
+    return paths
+
+
+@pytest.mark.parametrize("path", ["infer_flip0", "infer_flip1", "keypoints_train_step",
+                                  "classification_train_step"])
+def test_cells_paths_make_no_host_sync(dev, path):
+    """Each path of ``_no_sync_paths`` once more after a warm-up (the
+    kernels' builds, the per-device constants), under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing CUDA call
+    (a pageable host->device copy, ``.item()``, ``nonzero``, a synchronize)
+    inside it raises. The paths' results stay on the card."""
+    fn = _no_sync_paths(dev)[path]
+    fn()
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
