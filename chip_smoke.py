@@ -17,6 +17,7 @@
     python3 chip_smoke.py --sharded-eval-only  # distributed eval and the utilities alone, see the end
     python3 chip_smoke.py --model-parallel-only  # the pipeline and the mesh step alone, see the end
     python3 chip_smoke.py --bench-only         # the benchmark CLIs alone, see the end
+    python3 chip_smoke.py --bn-backward-only   # the BatchNorm backward pair alone, see the end
 
 Drives the port's main path — HigherHRNet-W32 at 512x512, batch 24, bf16
 forward with float32 outputs, then the associative-embedding decode at the
@@ -256,15 +257,32 @@ SM; it prints one JSON object last (no ``ok`` line).
 ``--infer-only`` builds the dense refine and the grouping and runs phase 6
 alone on the W32 model; it prints the phase's record as one JSON object
 last (no ``ok`` line). ``--eval-only`` does the same for phase 8,
-``--train-only`` for phase 9 (which builds no kernel) and
+``--train-only`` for phase 9 (which builds no decode kernel) and
 ``--train-data-only`` for phase 10 (which builds the dense refine and the
 grouping for its validation), ``--train-engine-only`` for phase 11 (the
 same two kernels; without phase 10 in the process it measures phase 10's
 steady step itself), ``--classification-only`` for phase 12 (which
-builds no kernel), ``--serve-only`` for phase 13, ``--zoo-only`` for
+builds no decode kernel), ``--serve-only`` for phase 13, ``--zoo-only`` for
 phase 14, ``--dp-train-only`` for phase 15 and ``--sharded-eval-only`` for
 phase 16 (each the dense refine and the grouping); ``--model-parallel-only``
 and ``--bench-only`` run phases 17 and 18 alike.
+
+Every path counts the launches of every kernel of the port
+(``kernel_counters``), the BatchNorm backward pair of ``ops/cuda_norm.py``
+too: the bfloat16 training steps of phases 9-18 launch it, 2 a BatchNorm
+layer a step. Phase 9 runs one more W32 bfloat16 step with the counters
+zeroed just before, requires those 2 launches for each train-mode
+BatchNorm forward, and keeps the BatchNorm inputs the step gave the pair:
+the kernels' summary row of the pair holds it against its plain version on
+those inputs and times the pair, the plain version and the library route it
+replaced (device ms: CUDA events behind a sleep kernel that outlasts the
+host's launches), beside the bound, summed over the step's layers.
+``--bn-backward-only`` is the short loop for that pair: it builds it, runs
+the W32 bs36 bfloat16 Adam step counted the same way, and on the BatchNorm
+inputs of that step (and fp16 at its two largest shapes) checks and times
+the pair as the full run does; then ms a step with the pair and with the
+library route in turns, and each route's BatchNorm backward device ms a
+step (profiler). Its last line is one JSON object of those records.
 """
 
 from __future__ import annotations
@@ -312,6 +330,9 @@ REPLACES = {
     "refine_argmax_phase": ("human_pose_tpu/ops/pallas_aggregate.py:289",
                             "refine_argmax_phase_batch (_refine_phase_kernel :231)"),
     "fused_basic_block": ("human_pose_tpu/ops/pallas_conv.py:97", "fused_basic_block (_kernel :39)"),
+    "batch_norm_backward": ("none", "(the JAX package leaves BatchNorm to flax and XLA; the pair "
+                                    "replaces PyTorch's native_batch_norm_backward and four "
+                                    "float32 sums)"),
 }
 SOURCES = {
     "match_by_tag": "human_pose_tpu_torch/csrc/match_by_tag.cu",
@@ -320,6 +341,7 @@ SOURCES = {
     "fused_aggregate": "human_pose_tpu_torch/csrc/fused_aggregate.cu",
     "refine_argmax_phase": "human_pose_tpu_torch/csrc/refine_argmax_phase.cu",
     "fused_basic_block": "human_pose_tpu_torch/csrc/fused_basic_block.cu",
+    "batch_norm_backward": "human_pose_tpu_torch/csrc/batch_norm_backward.cu",
 }
 
 
@@ -1238,11 +1260,19 @@ def dense_stage_inputs(kpts, tags, dev):
     return stages, [torch.from_numpy(tags[:, :, 0]).to(dev)]
 
 
+# kernels whose launches a path records without fixing them where ``want``
+# does not name them: the BatchNorm backward pair, 2 a layer in each
+# training step, and a training path's steps are its own
+RECORDED = ("batch_norm_backward",)
+
+
 def make_counted(counters: dict):
     """``counted(fn, what, want)``: run ``fn`` with every launch counter of
     ``counters`` zeroed just before; require exactly the launches of
-    ``want`` (and none of any other kernel); ``want`` may be a function of
-    fn's result. Returns (fn's result, counts)."""
+    ``want`` (and none of any other kernel), save that a ``RECORDED``
+    kernel that ``want`` does not name is only required even (whole
+    calls); ``want`` may be a function of fn's result. Returns (fn's
+    result, counts)."""
     import torch
 
     def counted(fn, what, want):
@@ -1253,7 +1283,9 @@ def make_counted(counters: dict):
         want = want(out) if callable(want) else want
         counts = {key: wrapper.launches for key, wrapper in counters.items()}
         log(f"{what} launches: {counts}")
-        if counts != {key: want.get(key, 0) for key in counters}:
+        fixed = {key: want.get(key, 0) for key in counters if key in want or key not in RECORDED}
+        if ({key: counts[key] for key in fixed} != fixed
+                or any(counts[key] % 2 for key in RECORDED if key in counts)):
             raise AssertionError(f"{what}: launches {counts}, want {want} and no others")
         return out, counts
     return counted
@@ -1262,7 +1294,9 @@ def make_counted(counters: dict):
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by kernel name; each counts its
     launches in ``.launches``."""
-    from human_pose_tpu_torch.ops import cuda_aggregate, cuda_conv, cuda_decode, cuda_match
+    from human_pose_tpu_torch.ops import (
+        cuda_aggregate, cuda_conv, cuda_decode, cuda_match, cuda_norm,
+    )
 
     return {
         "match_by_tag": cuda_match.match_by_tag_batched,
@@ -1271,6 +1305,7 @@ def kernel_counters() -> dict:
         "fused_aggregate": cuda_aggregate.fused_aggregate,
         "refine_argmax_phase": cuda_aggregate.refine_argmax_phase_batch,
         "fused_basic_block": cuda_conv.fused_basic_block,
+        "batch_norm_backward": cuda_norm.batch_norm_backward,
     }
 
 
@@ -2022,8 +2057,14 @@ def train_phase(dev, counted, smi: str) -> dict:
     spread, img/s), the peak memory, the device busy time and idle share of
     one step (profiler), every step's losses finite (``timed_steps``);
     ``accumulated_keypoints_train_step(2)`` once on the same batch.
-    All of it with every kernel's launch counter zeroed before and required
-    at 0 after: no kernel of the port lies on the training path."""
+    All of it with every kernel's launch counter zeroed before; after, the
+    decode's and the convolution's required at 0 (none lies on the training
+    path), the BatchNorm backward pair's recorded. Then (3) one more
+    bfloat16 step with the counters zeroed just before: 2 launches of the
+    pair for each train-mode BatchNorm forward and none of any other kernel,
+    and on the BatchNorm inputs the step gave the pair, the pair against its
+    plain version and timed beside it, the library route and the bound
+    (``bn_rows``; the kernels' summary row of the pair)."""
     import torch
 
     from human_pose_tpu_torch.configs import KeypointsConfig
@@ -2034,6 +2075,7 @@ def train_phase(dev, counted, smi: str) -> dict:
     )
 
     out = {"card": smi}
+    steps = {}
 
     def run():
         out["card_vs_cpu"] = train_step_card_vs_cpu(dev)
@@ -2075,6 +2117,7 @@ def train_phase(dev, counted, smi: str) -> dict:
 
                 out[name] = timed_steps(step, n, f"train {name}", smi)
                 out[name]["steps"] = state.step
+                steps[name] = step
                 if dtype == torch.float32:
                     _, acc = accumulated_keypoints_train_step(2)(state, batch, sched.lr)
                     acc = {k: float(v) for k, v in acc.items()}
@@ -2087,13 +2130,21 @@ def train_phase(dev, counted, smi: str) -> dict:
 
     _, out["launches"] = counted(run, "phase 9 (training: reduced card vs CPU, W32 float32 and "
                                       "bfloat16 steps, accumulated step)", {})
+    seen = {}
+    _, out["step_launches"] = counted(
+        lambda: seen.update(record_bn_inputs(steps["bfloat16"])),
+        "phase 9 (one more W32 bfloat16 step, its BatchNorm inputs kept)",
+        lambda _: {"batch_norm_backward": 2 * seen["forwards"]})
+    rows, totals = bn_rows(dev, bn_step_cases(seen), smi)
+    out["bn_backward"] = {"layers": seen["forwards"], "rows": rows, "totals": totals}
     return out
 
 
 def train_only(dev, smi: str) -> int:
-    """Phase 9 alone: no kernel is built (none lies on the training path);
-    every kernel's launch counter is still required to stay at 0. Prints the
-    phase's record as one JSON object last."""
+    """Phase 9 alone: no decode kernel is built (none lies on the training
+    path; their launch counters are still required to stay at 0); the
+    BatchNorm backward pair builds at its first use. Prints the phase's
+    record as one JSON object last."""
     counted = make_counted(kernel_counters())
     print(json.dumps({"train": train_phase(dev, counted, smi)}), flush=True)
     return 0
@@ -3195,8 +3246,9 @@ def classification_phase(dev, counted, smi: str) -> dict:
     (``classification_steps``); (3) the synthesized ImageFolder through the
     loader and the three classification CLIs, the inference model and the
     hand-off to HigherHRNet (``classification_cli``). All of it with every
-    kernel's launch counter zeroed before and required at 0 after: no
-    kernel of the port lies on the classification path."""
+    kernel's launch counter zeroed before; after, the decode's and the
+    convolution's required at 0 (none lies on the classification path), the
+    BatchNorm backward pair's recorded (its bfloat16 steps launch it)."""
     import tempfile
 
     out = {"card": smi}
@@ -3215,9 +3267,9 @@ def classification_phase(dev, counted, smi: str) -> dict:
 
 
 def classification_only(dev, smi: str) -> int:
-    """Phase 12 alone: no kernel is built (none lies on the classification
-    path); every kernel's launch counter is still required to stay at 0.
-    Prints the phase's record as one JSON object last."""
+    """Phase 12 alone: no decode kernel is built (none lies on the
+    classification path; their launch counters are still required to stay
+    at 0). Prints the phase's record as one JSON object last."""
     counted = make_counted(kernel_counters())
     print(json.dumps({"classification": classification_phase(dev, counted, smi)}), flush=True)
     return 0
@@ -4640,12 +4692,12 @@ def dp_train_phase(dev, counted, smi: str) -> dict:
     yaml_path = str(Path(__file__).resolve().parent / TRAIN_YAML)
     out = {"card": smi}
     out["card_vs_cpu"] = ae_hourglass_step_card_vs_cpu(dev)
-    out["steps"], _ = counted(lambda: ae_hourglass_steps(dev, smi),
-                              "phase 15 (AE hourglass steps at the yaml's point)", {})
-    out["mesh_cost"], _ = counted(lambda: mesh_step_cost(dev, smi),
-                                  "phase 15 (the step through a group of one)", {})
-    out["local_bn_cost"], _ = counted(lambda: local_bn_cost(dev, smi),
-                                      "phase 15 (per-process BatchNorm statistics)", {})
+    out["steps"], out["steps_launches"] = counted(
+        lambda: ae_hourglass_steps(dev, smi), "phase 15 (AE hourglass steps at the yaml's point)", {})
+    out["mesh_cost"], out["mesh_cost_launches"] = counted(
+        lambda: mesh_step_cost(dev, smi), "phase 15 (the step through a group of one)", {})
+    out["local_bn_cost"], out["local_bn_cost_launches"] = counted(
+        lambda: local_bn_cost(dev, smi), "phase 15 (per-process BatchNorm statistics)", {})
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         root = tmp / "coco"
@@ -5028,8 +5080,9 @@ def sharded_eval_phase(dev, counted, smi: str) -> dict:
         (tmp / "eval").mkdir()
         (tmp / "ckpt").mkdir()
         out["eval"] = sharded_eval(dev, counted, smi, tmp / "eval")
-        out["checkpoint"], _ = counted(lambda: checkpoint_dir_cost(dev, tmp / "ckpt", smi),
-                                       "phase 16 (checkpoints of W32's Adam state)", {})
+        out["checkpoint"], out["checkpoint_launches"] = counted(
+            lambda: checkpoint_dir_cost(dev, tmp / "ckpt", smi),
+            "phase 16 (checkpoints of W32's Adam state)", {})
         out["monitor"] = monitor_check(tmp, smi)
     out["rle"] = rle_check(np.random.default_rng(SEED + 16))
     out["launches"] = out["eval"]["launches"]
@@ -5352,7 +5405,8 @@ def parallel_phase(dev, model, counted, smi: str) -> dict:
     t_phase = time.perf_counter()
     out = {"card": smi, "pipeline": pipeline_timing(dev, model, smi),
            "inference": pipelined_inference(dev, model, counted, smi)}
-    out["mesh_step"], _ = counted(lambda: mesh_step(dev, smi), "phase 17 (the mesh steps)", {})
+    out["mesh_step"], out["mesh_step_launches"] = counted(lambda: mesh_step(dev, smi),
+                                                          "phase 17 (the mesh steps)", {})
     out["launches"] = out["inference"]["launches"]
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 17 (pipeline, pipelined inference, mesh step): {out['seconds']:.1f}s")
@@ -5524,7 +5578,8 @@ def bench_phase(dev, counted, smi: str, phase9: dict | None = None,
     for task in ("keypoints", "classification"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        rec, _ = counted(lambda: bench_train.main([f"--task={task}"]), f"bin.bench_train {task}", {})
+        rec, rec["launches"] = counted(lambda: bench_train.main([f"--task={task}"]),
+                                       f"bin.bench_train {task}", {})
         rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         rec["phase_step_ms"] = ref[task]
         if not (np.isfinite(rec["loss"]) and rec["value"] > 0 and rec["platform"] == "gpu"):
@@ -5790,6 +5845,325 @@ def block_only(dev, gen, smi: str) -> int:
     return 0
 
 
+BN_BATCH = 36  # the W32 training point
+BN_COLD_BYTES = 256 * 2**20  # inputs rotated through at least this many bytes: L2 (50 MB) cold
+BN_CALLS = {"kernel": 10, "plain": 3, "library": 3}  # calls a device-ms reading
+BN_STEP_ROUNDS = 2  # rounds of (pair, library, library, pair) timed steps
+BN_HOST_CALLS = 500  # calls a host-cost reading
+
+
+def bn_inputs(gen, shape, dtype, dev) -> tuple:
+    """``(grad_y, x, weight, mean, invstd)`` of one BatchNorm backward: x
+    with a mean and a scale of its own a channel, float32 moments of it."""
+    import torch
+
+    c = shape[1]
+    kw = {"generator": gen, "device": dev}
+    x = (torch.randn(shape, **kw) * (0.1 + 3 * torch.rand((1, c, 1, 1), **kw))
+         + torch.randn((1, c, 1, 1), **kw)).to(dtype)
+    gy = torch.randn(shape, **kw).to(dtype)
+    mean = x.float().mean((0, 2, 3))
+    invstd = torch.rsqrt((x.float() - mean[:, None, None]).square().mean((0, 2, 3)) + 1e-5)
+    return gy, x, torch.linspace(0.5, 1.5, c, device=dev), mean, invstd
+
+
+def bn_library(grad_y, x, weight, mean, invstd, need_x=True):
+    """The route the kernel pair replaced, as one call: the library's
+    ``native_batch_norm_backward`` for grad_x and four float32 passes for
+    the parameter gradients (``models/norm.py`` before the pair)."""
+    import torch
+
+    grad_x = None
+    if need_x:
+        grad_x = torch.ops.aten.native_batch_norm_backward(
+            grad_y, x, weight, None, None, mean, invstd, True, 1e-5, [True, False, False])[0]
+    dims = (0, 2, 3)
+    grad_b = grad_y.sum(dims, dtype=torch.float32)
+    grad_w = (x - mean[:, None, None]).mul_(grad_y).sum(dims).mul_(invstd)
+    return grad_x, grad_w, grad_b
+
+
+def record_bn_inputs(fn) -> dict:
+    """Run ``fn`` once with the kernel pair's launch (``cuda_norm._launch``,
+    behind ``batch_norm_backward``'s counter) wrapped and a forward hook on
+    every module: ``{"inputs": {(C, H, W): the arguments of the first launch
+    at that shape}, "calls": {(C, H, W): launches of the pair}, "forwards":
+    train-mode BatchNorm2d forwards of a bf16 or fp16 x}``. Restores both
+    after."""
+    import torch
+
+    from human_pose_tpu_torch.models.norm import BatchNorm2d
+    from human_pose_tpu_torch.ops import cuda_norm
+
+    launch = cuda_norm._launch
+    seen = {"inputs": {}, "calls": {}, "forwards": 0}
+
+    def recorder(*args, **kwargs):
+        key = tuple(args[1].shape[1:])
+        seen["inputs"].setdefault(key, tuple(t.detach() for t in args[:5]))
+        seen["calls"][key] = seen["calls"].get(key, 0) + 1
+        return launch(*args, **kwargs)
+
+    def hook(mod, inputs, out):
+        if (isinstance(mod, BatchNorm2d) and mod.training
+                and inputs[0].dtype in (torch.bfloat16, torch.float16)):
+            seen["forwards"] += 1
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    cuda_norm._launch = recorder
+    try:
+        fn()
+    finally:
+        cuda_norm._launch = launch
+        handle.remove()
+    return seen
+
+
+def bn_errors(got, args) -> dict:
+    """The pair's result against float64 of the same formulas: grad_x's
+    largest error beyond one rounding of its dtype, over its scale, and the
+    parameter gradients' largest error over their scale."""
+    import torch
+
+    ulp = 2 ** -8 if args[1].dtype == torch.bfloat16 else 2 ** -11
+    gy, x, weight, mean, invstd = (t.double() for t in args)
+    c = (None, slice(None), None, None)
+    n = x.numel() / x.shape[1]
+    sum_b = gy.sum((0, 2, 3))
+    sum_w = (gy * (x - mean[c])).sum((0, 2, 3)) * invstd
+    want = (weight * invstd)[c] * (gy - sum_b[c] / n - (x - mean[c]) * invstd[c] * sum_w[c] / n)
+    excess = ((got[0].double() - want).abs() - ulp * want.abs()).max() / want.abs().max()
+    return {"dx_excess_over_one_rounding": float(excess),
+            "grad_w_rel": float((got[1].double() - sum_w).abs().max() / sum_w.abs().max()),
+            "grad_b_rel": float((got[2].double() - sum_b).abs().max() / sum_b.abs().max())}
+
+
+def bn_parity(got, plain) -> dict:
+    """The pair's result against ``batch_norm_backward_plain``'s on the same
+    inputs: grad_x's largest difference beyond two roundings of its dtype
+    (each side rounds once from float32), over its scale, and the parameter
+    gradients' largest difference over their scale."""
+    import torch
+
+    ulp = 2 ** -8 if got[0].dtype == torch.bfloat16 else 2 ** -11
+    want = plain[0].float()
+    excess = ((got[0].float() - want).abs() - 2 * ulp * want.abs()).max() / want.abs().max()
+    return {"dx_excess_vs_plain": float(excess),
+            "grad_w_rel_vs_plain": float((got[1] - plain[1]).abs().max() / plain[1].abs().max()),
+            "grad_b_rel_vs_plain": float((got[2] - plain[2]).abs().max() / plain[2].abs().max())}
+
+
+BN_SLEEP_TRIES = 4  # doublings of the sleep ahead of a device-ms reading
+
+
+def device_ms(fn, calls: int) -> float:
+    """Device ms of one ``fn()``: CUDA events around ``calls`` calls queued
+    behind a sleep kernel that outlasts their launches, so that the events
+    time the card's work and not the host's launches. (The profiler's kernel
+    records lose rows in a long process.) Raises if the host still drained
+    the queue after ``BN_SLEEP_TRIES`` doublings of the sleep."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10**7)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = 10**7 / start.elapsed_time(end)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    sleep_ms = 2 * calls * (time.perf_counter() - t0) * 1e3 + 1.0  # the host's launches, twice over
+    for _ in range(BN_SLEEP_TRIES):
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        launched_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if launched_ms < 0.5 * sleep_ms:
+            return start.elapsed_time(end) / calls
+        sleep_ms *= 2
+    raise AssertionError(f"device_ms: {calls} calls took {launched_ms:.1f} ms to launch, "
+                         f"behind a sleep of {sleep_ms / 2:.1f} ms")
+
+
+def bn_bound(x, l2_bytes: int) -> tuple:
+    """The BatchNorm backward's device-memory bound of one call: ``(ms,
+    bytes an element)``. The reduce reads x and grad_y, the apply reads them
+    again and writes grad_x: 10 B an element in bf16, less the part of the
+    second read the L2 can serve (up to its size): 6 B where x and grad_y fit
+    in it together."""
+    n, size = x.numel(), x.element_size()
+    nbytes = 2 * (2 * size * n) + size * n - min(2 * size * n, l2_bytes)
+    return nbytes / PEAK_BYTES_S * 1e3, nbytes / n
+
+
+def bn_rows(dev, cases: list, smi: str) -> tuple:
+    """Each ``(args, layers)`` of ``cases`` (one BatchNorm backward's
+    ``(grad_y, x, weight, mean, invstd)`` and the step's layers of that
+    shape, 0 for a check outside the step): the pair against its plain
+    version on the card (``bn_parity``) and against float64
+    (``bn_errors``), two calls bit-equal; its split and load width; device
+    ms of the pair, the plain version and the library route on inputs
+    rotated through ``BN_COLD_BYTES`` and at least two copies (CUDA events,
+    ``device_ms``); the bound
+    (``bn_bound``). Returns the rows and the step's totals (each ms times
+    its layers) with the largest errors. Raises where the pair misses its
+    tolerances."""
+    import torch
+
+    from human_pose_tpu_torch.ops import cuda_norm
+
+    props = torch.cuda.get_device_properties(dev)
+    l2_bytes = props.L2_cache_size
+    rows = []
+    totals = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "elements": 0,
+              "layers": 0, "l2_bytes": l2_bytes}
+    for args, layers in cases:
+        x = args[1]
+        n, c, h, w = x.shape
+        got = cuda_norm.batch_norm_backward(*args)
+        err = {**bn_parity(got, cuda_norm.batch_norm_backward_plain(*args)), **bn_errors(got, args)}
+        if not (all(err[k] <= 1e-5 for k in ("dx_excess_vs_plain", "dx_excess_over_one_rounding"))
+                and all(v <= 1e-4 for k, v in err.items() if k.startswith("grad_"))):
+            raise AssertionError(f"bn backward {tuple(x.shape)} {x.dtype}: {err}")
+        if not all(torch.equal(a, b) for a, b in zip(got, cuda_norm.batch_norm_backward(*args))):
+            raise AssertionError(f"bn backward {tuple(x.shape)} {x.dtype}: two calls differ")
+        copies = [args] + [tuple(t.clone() for t in args) for _ in range(
+            max(1, -(-BN_COLD_BYTES // (2 * x.numel() * x.element_size())) - 1))]
+        turn = iter(range(10**9))
+
+        def rotated(fn):
+            return lambda: fn(*copies[next(turn) % len(copies)])
+
+        vec = cuda_norm.vector_width(h * w, x, args[0])
+        bound_ms, per = bn_bound(x, l2_bytes)
+        rec = {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1], "layers": layers,
+               "splits": cuda_norm.splits(c, n * h * w // vec, props.multi_processor_count),
+               "vec": vec, "copies": len(copies),
+               "kernel_ms": device_ms(rotated(cuda_norm.batch_norm_backward), BN_CALLS["kernel"]),
+               "plain_ms": device_ms(rotated(cuda_norm.batch_norm_backward_plain), BN_CALLS["plain"]),
+               "library_ms": device_ms(rotated(bn_library), BN_CALLS["library"]),
+               "bound_ms": bound_ms, "bound_bytes_an_element": per, **err}
+        rec["bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
+        rows.append(rec)
+        log(f"bn backward {tuple(x.shape)} {rec['dtype']} x{layers}: pair {rec['kernel_ms']:.4f} ms "
+            f"(S={rec['splits']}, vec {vec}), bound {bound_ms:.4f} ({per:.2f} B an element, "
+            f"{100 * rec['bound_share']:.1f}%), plain {rec['plain_ms']:.4f}, library "
+            f"{rec['library_ms']:.4f}; {err}  [{smi}]")
+        totals["elements"] += layers * x.numel()
+        totals["layers"] += layers
+        for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms"):
+            totals[key] += layers * rec[key]
+        del copies, got
+    for key in ("dx_excess_vs_plain", "grad_w_rel_vs_plain", "grad_b_rel_vs_plain",
+                "dx_excess_over_one_rounding", "grad_w_rel", "grad_b_rel"):
+        totals[key] = max(r[key] for r in rows)
+    totals["bound_share"] = totals["bound_ms"] / totals["kernel_ms"] if totals["kernel_ms"] else None
+    log(f"bn backward, the step's {totals['layers']} layers: {totals}  [{smi}]")
+    return rows, totals
+
+
+def bn_step_cases(seen: dict) -> list:
+    """``bn_rows``' cases from ``record_bn_inputs``: each shape the step
+    gave the pair, its inputs and its layers, the most elements first."""
+    order = sorted(seen["inputs"], key=lambda k: -seen["calls"][k] * k[0] * k[1] * k[2])
+    return [(seen["inputs"][key], seen["calls"][key]) for key in order]
+
+
+def bn_step(dev, smi: str) -> tuple:
+    """The W32 bs36 512^2 bfloat16 Adam step: one step with the pair's
+    counter zeroed just before, 2 launches for each train-mode BatchNorm
+    forward of the step required, its BatchNorm inputs kept
+    (``record_bn_inputs``); ms a step by host wall with the pair and with the
+    library route (``bn_library`` patched in, 0 launches of the pair) in
+    turns, and each route's device ms a step in kernels named
+    ``batch_norm_backward`` (profiler). Returns (record, the kept inputs)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
+    from human_pose_tpu_torch.ops import cuda_norm
+    from human_pose_tpu_torch.train import TrainState, create_optimizer, keypoints_train_step
+
+    model = HigherHRNet(num_kpts=K, C=32, device=dev)
+    init_flax_default_(model, torch.Generator().manual_seed(SEED))
+    state = TrainState.create(model, create_optimizer(model.parameters(), "Adam", 1e-3),
+                              dtype=torch.bfloat16, device=dev)
+    batch = train_batch(BN_BATCH, SIZE, M, torch.Generator(device=dev).manual_seed(SEED), dev)
+    pair = cuda_norm.batch_norm_backward
+    counted = make_counted({"batch_norm_backward": pair})
+
+    def step():
+        metrics = keypoints_train_step(state, batch, 1e-3)[1]
+        torch.cuda.synchronize()
+        return metrics
+
+    step()  # cuDNN's autotuning
+    seen = {}
+    _, counts = counted(lambda: seen.update(record_bn_inputs(step)), "W32 bs36 bf16 step, the pair",
+                        lambda _: {"batch_norm_backward": 2 * seen["forwards"]})
+    out = {"layers": seen["forwards"], "launches_a_step": {"pair": counts["batch_norm_backward"]},
+           "ms": {"pair": [], "library": []}, "bn_backward_device_ms": {}}
+    try:
+        for route in ("pair", "library"):
+            cuda_norm.batch_norm_backward = pair if route == "pair" else bn_library
+            if route == "library":
+                _, counts = counted(step, "W32 bs36 bf16 step, the library route",
+                                    {"batch_norm_backward": 0})
+                out["launches_a_step"][route] = counts["batch_norm_backward"]
+            warm_up(step, 2.0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step()
+            out["bn_backward_device_ms"][route] = sum(
+                ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA and "batch_norm_backward" in ev.name)
+        for _ in range(BN_STEP_ROUNDS):
+            for route in ("pair", "library", "library", "pair"):
+                cuda_norm.batch_norm_backward = pair if route == "pair" else bn_library
+                out["ms"][route].append(host_ms(step, iters=3))
+    finally:
+        cuda_norm.batch_norm_backward = pair
+    out["img_per_s"] = {r: BN_BATCH / float(np.median(v)) * 1e3 for r, v in out["ms"].items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"bn backward W32 bs{BN_BATCH} bf16 step: {out}  [{smi}]")
+    return out, seen
+
+
+def bn_backward_only(dev, smi: str) -> int:
+    """The short loop for the BatchNorm backward pair (module doc). Prints
+    one JSON object last."""
+    import torch
+
+    from human_pose_tpu_torch.ops import _build, cuda_norm
+
+    secs = _build.build_kernels(("batch_norm_backward",))
+    log(f"build: {secs}")
+    log_build(_build)
+    step, seen = bn_step(dev, smi)
+    cases = bn_step_cases(seen)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # fp16 at the two shapes with the most elements (not in the bf16 step)
+    cases += [(bn_inputs(gen, tuple(args[1].shape), torch.float16, dev), 0) for args, _ in cases[:2]]
+    rows, totals = bn_rows(dev, cases, smi)
+    del seen, cases
+    # host cost of a call where the card waits on the host: a small layer
+    small = bn_inputs(gen, (2, 32, 8, 8), torch.bfloat16, dev)
+    host_us = {}
+    for name, fn in (("pair", cuda_norm.batch_norm_backward), ("library", bn_library)) * 2:
+        host_us[name] = host_ms(lambda: ([fn(*small) for _ in range(BN_HOST_CALLS)],
+                                         torch.cuda.synchronize())) / BN_HOST_CALLS * 1e3
+    log(f"bn backward host us a call (2x32x8x8): {host_us}  [{smi}]")
+    print(json.dumps({"bn_backward_only": {"card": smi, "build_s": secs, "shapes": rows,
+                                           "step_totals": totals, "host_us_a_call": host_us,
+                                           "step": step}}), flush=True)
+    return 0
+
+
 def infer_only(dev, rng, smi: str) -> int:
     """Phase 6 alone: build the dense refine and the grouping, then the
     inference model's configurations on the seeded W32 model. Prints the
@@ -5828,7 +6202,7 @@ def main() -> int:
     parser.add_argument("--eval-only", action="store_true",
                         help="build the decode's kernels and run the COCO evaluation phase alone")
     parser.add_argument("--train-only", action="store_true",
-                        help="run the training phase alone (it builds no kernel)")
+                        help="run the training phase alone (it builds no decode kernel)")
     parser.add_argument("--train-data-only", action="store_true",
                         help="build the decode's kernels and run the training input pipeline's "
                              "phase alone")
@@ -5837,7 +6211,8 @@ def main() -> int:
                              "(the W32 run through the training CLI, its resume, inference from its "
                              "last.pt, the engine's timing, the reduced run card vs CPU)")
     parser.add_argument("--classification-only", action="store_true",
-                        help="run the ImageNet classification phase alone (it builds no kernel)")
+                        help="run the ImageNet classification phase alone (it builds no decode "
+                             "kernel)")
     parser.add_argument("--serve-only", action="store_true",
                         help="build the decode's kernels and run the serving and export phase alone")
     parser.add_argument("--zoo-only", action="store_true",
@@ -5851,6 +6226,9 @@ def main() -> int:
     parser.add_argument("--model-parallel-only", action="store_true",
                         help="build the decode's two kernels and run phase 17 (the pipeline, the "
                              "pipelined inference model, the mesh step) alone")
+    parser.add_argument("--bn-backward-only", action="store_true",
+                        help="build, check and time the BatchNorm backward pair alone, and the "
+                             "W32 bs36 bfloat16 step with it and with the library route")
     parser.add_argument("--bench-only", action="store_true",
                         help="build the decode's two kernels and run phase 18 (bench_decompose and "
                              "bench_train through their main) alone")
@@ -5919,6 +6297,8 @@ def main() -> int:
         return model_parallel_only(dev, smi)
     if args.bench_only:
         return bench_only(dev, smi)
+    if args.bn_backward_only:
+        return bn_backward_only(dev, smi)
 
     # 2. build
     t0 = time.perf_counter()
@@ -5968,7 +6348,7 @@ def main() -> int:
 
     counted = make_counted(kernel_counters())
 
-    dense_want = {"match_by_tag": 1, "refine_argmax": 1}
+    dense_want = {"match_by_tag": 1, "refine_argmax": 1, "batch_norm_backward": 0}
     (hms, tags, (joints, scores, valid)), launches = counted(
         lambda: infer(images), "main path (forward + decode)", dense_want)
     (dj, ds, dv), launches_dense = counted(decode_dense, "dense-scene decode", dense_want)
@@ -6182,7 +6562,16 @@ def main() -> int:
              "zoo_train_val": dp_rec["launches"],
              "sharded_eval": sharded_rec["launches"],
              "pipeline": parallel_rec["launches"],
-             "bench_decompose": bench_rec["launches"]}
+             "bench_decompose": bench_rec["launches"],
+             # the training paths (bfloat16 steps launch the BatchNorm backward pair)
+             "train": train_rec["launches"],
+             "train_step": train_rec["step_launches"],
+             "zoo_train_steps": dp_rec["steps_launches"],
+             "zoo_train_mesh_cost": dp_rec["mesh_cost_launches"],
+             "zoo_train_local_bn": dp_rec["local_bn_cost_launches"],
+             "checkpoint": sharded_rec["checkpoint_launches"],
+             "mesh_step": parallel_rec["mesh_step_launches"],
+             **{f"bench_train_{task}": rec["launches"] for task, rec in bench_rec["train"].items()}}
 
     def row(key, path, parity, k_ms, p_ms, bound_ms_by, library_ms, **extra):
         return {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key][0],
@@ -6292,6 +6681,19 @@ def main() -> int:
         float32={f"C{r['c']} {r['hw']}^2": {key: r[key] for key in (
             "ms", "ms_with_packing", "bound_ms", "bound_by", "floor_ms", "library_ms", "grid", "tile")}
                  for r in per_shape if r["dtype"] == "float32"}))
+    bn = train_rec["bn_backward"]
+    errs["batch_norm_backward"] = bn["totals"]["dx_excess_vs_plain"]
+    kernels.append(row(
+        "batch_norm_backward", "train_step",
+        "grad_x within two roundings of the plain version (each rounds once from float32), "
+        "grad_w and grad_b within 1e-4 of their scale; float64 too; two calls bit-equal",
+        bn["totals"]["kernel_ms"], bn["totals"]["plain_ms"],
+        (bn["totals"]["bound_ms"], "bytes: 10 B an element less what the L2 serves of the second read"),
+        bn["totals"]["library_ms"], library="native_batch_norm_backward and four float32 sums, as one",
+        shape=f"the phase 9 W32 bfloat16 step's {bn['layers']} BatchNorm layers at "
+              f"{train_rec['batch']}x{train_rec['size']}^2, ms summed over them; each shape in "
+              "per_shape",
+        totals=bn["totals"], per_shape=bn["rows"]))
     print("kernels: " + "; ".join(
         f"{r['name']} replaces={r['replaces']} {REPLACES[r['name']][1]} launches={r['launches']} "
         f"({r['path']} path; {r['launches_by_path']}) parity={r['parity']} "

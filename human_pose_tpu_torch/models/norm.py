@@ -88,22 +88,16 @@ class _NormalizeWithStats(torch.autograd.Function):
             grad_x, grad_w, grad_b = torch.ops.aten.native_batch_norm_backward(
                 grad_y, x, weight, None, None, mean, invstd, True, ctx.eps, [need_x, need_w, need_b])
             return grad_x, grad_w, grad_b, None, None, None
-        # For a bf16 x, CUDA's backward kernels (this one and
-        # batch_norm_backward_reduce) return the weight's and the bias's
-        # gradients at bf16 precision; JAX's bf16 step keeps them float32.
-        # So the kernel gives grad_x only, and the parameter gradients are
-        # float32 sums here: sum(grad_y) and invstd * sum(grad_y * (x -
-        # mean)), each bf16 operand read once and widened in the kernel.
-        grad_x = grad_w = grad_b = None
-        if need_x:
-            grad_x = torch.ops.aten.native_batch_norm_backward(
-                grad_y, x, weight, None, None, mean, invstd, True, ctx.eps, [True, False, False])[0]
-        dims = (0, 2, 3)
-        if need_b:
-            grad_b = grad_y.sum(dims, dtype=torch.float32)
-        if need_w:
-            grad_w = (x - mean[:, None, None]).mul_(grad_y).sum(dims).mul_(invstd)
-        return grad_x, grad_w, grad_b, None, None, None
+        # A bf16 or fp16 x takes the port's kernel pair (its plain version on
+        # the CPU): grad_x in x's dtype, the weight's and the bias's
+        # gradients float32 sums, as JAX's bf16 step keeps them (CUDA's
+        # library kernels give those at bf16 precision). Imported here: ops
+        # imports this module.
+        from ..ops.cuda_norm import batch_norm_backward
+
+        grad_x, grad_w, grad_b = batch_norm_backward(grad_y, x.contiguous(), weight, mean, invstd,
+                                                     need_x)
+        return grad_x, grad_w if need_w else None, grad_b if need_b else None, None, None, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -156,12 +150,9 @@ class _SyncNormalize(torch.autograd.Function):
     def backward(ctx, grad_y):
         x, weight, mean, invstd = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dims, c = (0, 2, 3), (slice(None), None, None)
-        stats = mean.dtype
-        dy = grad_y.to(stats)
-        xmu = x.to(stats) - mean[c]
-        sum_dy = dy.sum(dims)
-        sum_dy_xmu = (dy * xmu).sum(dims)
+        from ..ops.cuda_norm import batch_norm_grad_x, batch_norm_sums
+
+        dy, xmu, sum_dy, sum_dy_xmu = batch_norm_sums(grad_y, x, mean)
         grad_w = sum_dy_xmu * invstd if need_w else None
         grad_b = sum_dy.clone() if need_b else None
         grad_x = None
@@ -169,8 +160,7 @@ class _SyncNormalize(torch.autograd.Function):
             sums = torch.cat([sum_dy, sum_dy_xmu])
             dist.all_reduce(sums, group=ctx.group)
             mean_dy, mean_dy_xmu = (sums / ctx.count).chunk(2)
-            grad_x = ((dy - mean_dy[c] - xmu * (invstd * invstd * mean_dy_xmu)[c])
-                      * (invstd * weight.to(stats))[c]).to(x.dtype)
+            grad_x = batch_norm_grad_x(dy, xmu, mean_dy, mean_dy_xmu, weight, invstd, x.dtype)
         return grad_x, grad_w, grad_b, None, None, None, None, None
 
 

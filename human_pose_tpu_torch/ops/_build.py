@@ -54,6 +54,8 @@ SIGNATURES = {
         "launch_fused_basic_block_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "fused_basic_block_tile": [_I, _I, _IP],
     },
+    "batch_norm_backward": {"launch_batch_norm_backward":
+                            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]},
 }
 
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -63,7 +65,7 @@ HOST_SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
-_host_lock = threading.Lock()
+_lock = threading.Lock()
 build_logs: dict[str, str] = {}  # name -> nvcc/ptxas output of this process's builds
 
 
@@ -127,11 +129,16 @@ def _bind(path: Path, signatures: dict) -> ctypes.CDLL:
 
 
 def load_kernel(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building it on first use."""
+    """The loaded library of kernel ``name``, building it on first use. Safe
+    to call from several threads (autograd runs a backward on a thread of
+    its own for each device)."""
     lib = _loaded.get(name)
     if lib is None:
-        build_kernels((name,))
-        lib = _loaded[name] = _bind(_lib_path(name), SIGNATURES[name])
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build_kernels((name,))
+                lib = _loaded[name] = _bind(_lib_path(name), SIGNATURES[name])
     return lib
 
 
@@ -148,7 +155,7 @@ def load_host_library(name: str) -> ctypes.CDLL:
     when the build fails. Safe to call from several threads and processes:
     a thread lock guards this process's build, and the library is written
     under a temporary name and moved into place."""
-    with _host_lock:
+    with _lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib

@@ -928,6 +928,111 @@ def test_local_batch_norm_train_card_equals_cpu(dev, dtype, groups):
     _batch_norm_card_vs_cpu(dev, dtype, lambda: LocalBatchNorm(32, num_groups=groups), groups)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,offset", [
+    # the W32 step's BatchNorm shapes at bs36
+    ((36, 32, 128, 128), 0), ((36, 64, 64, 64), 0), ((36, 128, 32, 32), 0), ((36, 256, 16, 16), 0),
+    ((36, 32, 256, 256), 0),
+    # H*W not a multiple of 8, N = 1, C = 1, channels shorter than one block,
+    # x 2 bytes past a 16-byte boundary
+    ((3, 5, 7, 9), 0), ((1, 16, 24, 24), 0), ((4, 1, 40, 40), 0), ((2, 3, 3, 5), 0),
+    ((2, 8, 16, 16), 1), ((80, 96, 7, 7), 0),
+])
+def test_batch_norm_backward_kernel_vs_plain(dev, shape, offset, dtype):
+    """``ops/cuda_norm.py``'s kernel pair against a float64 evaluation of
+    its plain version's formulas on the same values: grad_x within one
+    rounding of the working type (2**-8 of each element in bf16, 2**-11 in
+    fp16, beside 1e-5 of the scale), the float32 weight's and bias's
+    gradients within 1e-4 of their scale. Two calls give the same bits; each
+    is two counted launches; with no grad_x the parameter gradients are the
+    same bits."""
+    from human_pose_tpu_torch.ops.cuda_norm import (
+        batch_norm_backward, batch_norm_backward_plain, vector_width,
+    )
+
+    n, c, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x32 = (torch.randn(shape, generator=gen, device=dev)
+           * (0.1 + 3 * torch.rand((1, c, 1, 1), generator=gen, device=dev))
+           + torch.randn((1, c, 1, 1), generator=gen, device=dev))
+    x = torch.empty(x32.numel() + offset, dtype=dtype, device=dev)[offset:].view(shape)
+    x.copy_(x32)
+    gy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    weight = torch.linspace(0.5, 1.5, c, device=dev)
+    mean = x.float().mean((0, 2, 3))
+    invstd = torch.rsqrt((x.float() - mean[:, None, None]).square().mean((0, 2, 3)) + 1e-5)
+    assert vector_width(h * w, x, gy) == (8 if (h * w) % 8 == 0 and not offset else 1)
+
+    batch_norm_backward.launches = 0
+    got = batch_norm_backward(gy, x, weight, mean, invstd)
+    again = batch_norm_backward(gy, x, weight, mean, invstd)
+    no_x = batch_norm_backward(gy, x, weight, mean, invstd, need_x=False)
+    torch.cuda.synchronize()
+    assert batch_norm_backward.launches == 6
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert no_x[0] is None and torch.equal(no_x[1], got[1]) and torch.equal(no_x[2], got[2])
+
+    x64, gy64, cc = x.double(), gy.double(), (None, slice(None), None, None)
+    m64, is64 = mean.double(), invstd.double()
+    sum_b = gy64.sum((0, 2, 3))
+    sum_w = (gy64 * (x64 - m64[cc])).sum((0, 2, 3)) * is64
+    want = (weight.double() * is64)[cc] * (gy64 - sum_b[cc] / (n * h * w)
+                                           - (x64 - m64[cc]) * is64[cc] * sum_w[cc] / (n * h * w))
+    grad_x, grad_w, grad_b = got
+    assert grad_x.dtype == dtype and grad_w.dtype == grad_b.dtype == torch.float32
+    ulp = 2 ** -8 if dtype == torch.bfloat16 else 2 ** -11
+    plain = batch_norm_backward_plain(gy, x, weight, mean, invstd)[0].double()
+    for ref, rounds in ((want, 1), (plain, 2)):  # the plain version rounds once too
+        err = (grad_x.double() - ref).abs() - rounds * ulp * ref.abs()
+        assert float(err.max()) <= 1e-5 * float(want.abs().max()), (rounds, float(err.max()))
+    for got_p, want_p in ((grad_w, sum_w), (grad_b, sum_b)):
+        assert float((got_p.double() - want_p).abs().max()) <= 1e-4 * float(want_p.abs().max())
+
+
+def test_batch_norm_backward_kernel_refusals(dev):
+    """The wrapper raises on what the kernel pair does not take: a
+    non-contiguous x, a grad_y of another dtype or shape, float32 x."""
+    from human_pose_tpu_torch.ops.cuda_norm import batch_norm_backward
+
+    x = torch.randn((2, 4, 8, 8), device=dev, dtype=torch.bfloat16)
+    stats = [torch.ones(4, device=dev) for _ in range(3)]
+    with pytest.raises(ValueError):
+        batch_norm_backward(x.transpose(2, 3), x.transpose(2, 3), *stats)
+    with pytest.raises(ValueError):
+        batch_norm_backward(x.half(), x, *stats)
+    with pytest.raises(ValueError):
+        batch_norm_backward(x[:1], x, *stats)
+    with pytest.raises(ValueError):
+        batch_norm_backward(x.float(), x.float(), *stats)
+
+
+def test_higher_hrnet_w32_bf16_step_launches_batch_norm_backward_per_layer(dev):
+    """A bfloat16 Adam step of the full-width HigherHRNet-W32 (batch 2 at
+    128^2) takes every BatchNorm backward through the kernel pair: 2
+    launches for each of the 301 train-mode BatchNorm layers the forward
+    ran; the float32 step launches none (``native_batch_norm_backward``)."""
+    from human_pose_tpu_torch.bin import bench_train
+    from human_pose_tpu_torch.models import HigherHRNet, init_flax_default_
+    from human_pose_tpu_torch.models.norm import BatchNorm2d
+    from human_pose_tpu_torch.ops.cuda_norm import batch_norm_backward
+    from human_pose_tpu_torch.train import TrainState, create_optimizer, keypoints_train_step
+
+    for dtype, per_layer in ((torch.bfloat16, 2), (torch.float32, 0)):
+        model = HigherHRNet(num_kpts=17, C=32, device=dev)
+        init_flax_default_(model, torch.Generator().manual_seed(0))
+        ran = []
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.register_forward_hook(lambda mod, i, o: ran.append(mod))
+        state = TrainState.create(model, create_optimizer(model.parameters(), "Adam", 1e-3),
+                                  dtype=dtype, device=dev)
+        batch_norm_backward.launches = 0
+        metrics = keypoints_train_step(state, bench_train.synth_batch(0, 2, 128, dev), 1e-3)[1]
+        torch.cuda.synchronize()
+        assert len(ran) == 301 and all(np.isfinite(float(v)) for v in metrics.values())
+        assert batch_norm_backward.launches == per_layer * len(ran)
+
+
 def test_train_step_reduced_card_equals_cpu(dev):
     """One float32 Adam step of the reduced HigherHRNet (C=8, one unit a
     stage, one deconv residual block; batch 4 at 128^2) on the card and on

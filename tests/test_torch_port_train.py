@@ -502,6 +502,91 @@ def test_batch_norm_parameter_gradients_in_at_least_float32(dtype):
         assert float((m.running_var - (0.9 + 0.1 * var)).abs().max()) <= 1e-12
 
 
+@pytest.mark.parametrize("need_x", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_backward_plain_matches_float64(dtype, need_x):
+    """``ops/cuda_norm.py``'s plain version (what the kernel pair repeats)
+    against a float64 evaluation of the batch-statistics gradient on the
+    same values: the weight's and the bias's gradients float32 within 1e-5
+    of their scale; grad_x in x's dtype within one rounding of it (2**-8 of
+    each element in bf16, 1e-5 of the scale in float32), None without
+    ``need_x``."""
+    from human_pose_tpu_torch.ops.cuda_norm import batch_norm_backward_plain
+
+    gen = torch.Generator().manual_seed(8)
+    x = (torch.randn((3, 6, 7, 5), generator=gen) * (0.1 + 3 * torch.rand((1, 6, 1, 1), generator=gen))
+         + torch.randn((1, 6, 1, 1), generator=gen)).to(dtype)
+    gy = torch.randn(x.shape, generator=gen).to(dtype)
+    w = torch.linspace(0.5, 1.5, 6)
+    x64, gy64, c = x.double(), gy.double(), (None, slice(None), None, None)
+    mean64 = x64.mean((0, 2, 3))
+    invstd64 = 1 / (x64.var((0, 2, 3), unbiased=False) + 1e-5).sqrt()
+    grad_x, grad_w, grad_b = batch_norm_backward_plain(gy, x, w, mean64.float(), invstd64.float(), need_x)
+    xhat = (x64 - mean64[c]) * invstd64[c]
+    sum_w, sum_b = (gy64 * xhat).sum((0, 2, 3)), gy64.sum((0, 2, 3))
+    for got, want in ((grad_w, sum_w), (grad_b, sum_b)):
+        assert got.dtype == torch.float32
+        assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    if not need_x:
+        assert grad_x is None
+        return
+    n = x.numel() / 6
+    want = (w.double() * invstd64)[c] * (gy64 - sum_b[c] / n - xhat * sum_w[c] / n)
+    assert grad_x.dtype == dtype
+    err = (grad_x.double() - want).abs()
+    if dtype == torch.bfloat16:
+        assert bool((err <= 2 ** -8 * want.abs() + 1e-6 * float(want.abs().max())).all())
+    else:
+        assert float(err.max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_batch_norm_backward_on_cpu_launches_nothing(dtype):
+    """A reduced-precision train-mode BatchNorm backward on CPU tensors runs
+    the plain version: the kernel pair's launch counter stays where it was,
+    and the gradients are the plain version's bit for bit."""
+    from human_pose_tpu_torch.ops.cuda_norm import batch_norm_backward, batch_norm_backward_plain
+
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn((2, 4, 6, 6), generator=gen).to(dtype).requires_grad_()
+    gy = torch.randn(x.shape, generator=gen).to(dtype)
+    m = batch_norm(4).train()
+    before = batch_norm_backward.launches
+    m(x).backward(gy)
+    assert batch_norm_backward.launches == before
+    xd = x.detach()
+    mean = xd.float().mean((0, 2, 3))
+    var = (xd.float().square().mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+    want = batch_norm_backward_plain(gy, xd, m.weight.detach(), mean, torch.rsqrt(var + 1e-5))
+    for got, ref in zip((x.grad, m.weight.grad, m.bias.grad), want):
+        assert torch.equal(got, ref)
+
+
+def test_batch_norm_backward_launch_shape():
+    """The kernel pair's splits a channel follow the shape: two full waves
+    of the card's 132 SMs at the W32 step's 32-channel layers, one block a
+    channel where the channels alone fill it, at least ``MIN_VECTORS`` loads
+    a thread, and 16-byte loads only for planes of a multiple of 8 on
+    16-byte-aligned bases."""
+    from human_pose_tpu_torch.ops.cuda_norm import (
+        BLOCKS_PER_SM, MIN_VECTORS, THREADS, WAVES, splits, vector_width,
+    )
+
+    full = 132 * BLOCKS_PER_SM * WAVES
+    assert splits(32, 36 * 256 * 256 // 8, 132) * 32 >= full
+    assert splits(32, 36 * 128 * 128 // 8, 132) == -(-full // 32)
+    assert splits(2048, 80 * 49, 132) == 2 and splits(4096, 80 * 49, 132) == 1
+    for c, vectors in ((64, 36 * 64 * 64 // 8), (128, 36 * 32 * 32 // 8), (256, 36 * 16 * 16 // 8),
+                       (1, 100), (3, 5000)):
+        s = splits(c, vectors, 132)
+        assert s >= 1 and (s == 1 or vectors // s >= THREADS * MIN_VECTORS)
+    x = torch.zeros(2 * 8 * 8 + 8, dtype=torch.bfloat16)
+    aligned = x[:128] if x.data_ptr() % 16 == 0 else x[(16 - x.data_ptr() % 16) // 2:][:128]
+    assert vector_width(64, aligned) == 8
+    assert vector_width(64, aligned[1:65]) == 1
+    assert vector_width(49, aligned) == 1
+
+
 def test_init_keypoints_weights():
     """Every conv and transposed-conv kernel drawn from N(0, 0.001) (each
     tensor's std within 10% for 500+ draws, mean within 5 standard errors),
