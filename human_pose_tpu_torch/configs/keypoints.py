@@ -13,6 +13,8 @@ from ..loggers.pylogger import log
 from .base import BaseConfig, TransformConfig, process_count
 
 ARCHITECTURES = ("HigherHRNet", "Hourglass", "SimpleBaseline", "HRNet")
+# the single-person nets: trained on person crops (data/coco_topdown.py)
+TOP_DOWN_ARCHITECTURES = ("SimpleBaseline", "HRNet")
 # the JAX model's layout switch (space-to-depth, a TPU lane packing): the
 # same parameters and the same forward, so the port drops it
 JAX_ONLY_NET_PARAMS = ("s2d",)
@@ -90,33 +92,50 @@ class KeypointsConfig(BaseConfig):
             std=t.std,
         )
 
+    @property
+    def top_down(self) -> bool:
+        """A single-person net, trained on person crops."""
+        return self.setup.architecture in TOP_DOWN_ARCHITECTURES
+
     def create_datamodule(self):
         """COCO train and val datasets with the train and inference
-        transforms, and their loaders (the train one shuffled), sharded over
+        transforms (the single-person nets: person crops,
+        ``data/coco_topdown.py``, augmented as the source on the train
+        split, the GT box's crop alone on the val split), and their
+        loaders (the train one shuffled), sharded over
         ``torch.distributed``'s processes when a group is initialized."""
         from ..data.coco import CocoKeypointsDataset, collate
+        from ..data.coco_topdown import CocoTopDownDataset, collate_topdown
         from ..data.loader import DataLoader
         from ..train.trainer import DataModule
         from ..utils.utils import get_rank
 
-        t = self._make_transform()
         dl_cfg = self.dataloader
-        common = dict(
-            out_size=dl_cfg.train_ds.out_size,
-            hm_resolutions=dl_cfg.train_ds.hm_resolutions,
-            num_kpts=dl_cfg.train_ds.num_kpts,
-            max_num_people=dl_cfg.train_ds.max_num_people,
-            sigma=dl_cfg.train_ds.sigma,
-            compact=dl_cfg.compact_batches,
-        )
-        train_ds = CocoKeypointsDataset(
-            dl_cfg.train_ds.root, dl_cfg.train_ds.split, t.train,
-            mosaic_probability=dl_cfg.train_ds.mosaic_probability, **common,
-        )
-        val_ds = CocoKeypointsDataset(dl_cfg.val_ds.root, dl_cfg.val_ds.split, t.inference, **common)
+        if self.top_down:  # crops of out_size rows, 3/4 of that in columns; targets at 1/4
+            train_ds, val_ds = (
+                CocoTopDownDataset(ds.root, ds.split, out_size=ds.out_size,
+                                   hm_resolution=float(ds.hm_resolutions[0]),
+                                   num_kpts=ds.num_kpts, sigma=ds.sigma, augment=augment)
+                for ds, augment in ((dl_cfg.train_ds, True), (dl_cfg.val_ds, False)))
+        else:
+            t = self._make_transform()
+            common = dict(
+                out_size=dl_cfg.train_ds.out_size,
+                hm_resolutions=dl_cfg.train_ds.hm_resolutions,
+                num_kpts=dl_cfg.train_ds.num_kpts,
+                max_num_people=dl_cfg.train_ds.max_num_people,
+                sigma=dl_cfg.train_ds.sigma,
+                compact=dl_cfg.compact_batches,
+            )
+            train_ds = CocoKeypointsDataset(
+                dl_cfg.train_ds.root, dl_cfg.train_ds.split, t.train,
+                mosaic_probability=dl_cfg.train_ds.mosaic_probability, **common,
+            )
+            val_ds = CocoKeypointsDataset(dl_cfg.val_ds.root, dl_cfg.val_ds.split, t.inference,
+                                          **common)
         kw = dict(
             batch_size=dl_cfg.batch_size,
-            collate_fn=collate,
+            collate_fn=collate_topdown if self.top_down else collate,
             num_workers=dl_cfg.num_workers,
             seed=self.setup.seed,
             process_index=get_rank(),
@@ -131,12 +150,12 @@ class KeypointsConfig(BaseConfig):
     def stage_resolutions(self) -> tuple:
         """The heatmap stages' resolutions, as fractions of the input, of a
         network ``KeypointsModule`` trains: HigherHRNet's 1/4 and 1/2, the
-        AE hourglass's 1/4 for each of its ``num_stages``; none for the
-        single-output nets, which it refuses."""
+        AE hourglass's 1/4 for each of its ``num_stages``, the single-person
+        nets' one stage at 1/4."""
         arch = self.setup.architecture or "HigherHRNet"
         if arch == "Hourglass":
             return (0.25,) * int(self.net.params.get("num_stages", 2))
-        return (0.25, 0.5) if arch == "HigherHRNet" else ()
+        return (0.25, 0.5) if arch == "HigherHRNet" else (0.25,)
 
     def check_trainable(self) -> None:
         """Refuse targets the network cannot train on, before anything is
@@ -162,8 +181,8 @@ class KeypointsConfig(BaseConfig):
         the keypoints init seeded from ``setup.seed`` and the yaml's
         optimizer and schedulers; host batches staged in pinned memory when
         ``dataloader.pin_memory`` is set. HigherHRNet and the AE hourglass
-        (``check_trainable``; ``KeypointsModule.create`` refuses the
-        single-output nets)."""
+        train through the AE steps, the single-person nets through the
+        top-down steps (``check_trainable`` first)."""
         from ..train.module import KeypointsModule
 
         self.check_trainable()

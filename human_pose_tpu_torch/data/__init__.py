@@ -2,6 +2,7 @@
 math, normalization, the keypoints training augmentations and the
 classification crops, the heatmap and joints targets (with the native
 splat), COCO masks, the COCO dataset with its mosaic and ``collate``, the
+COCO person crops of the top-down nets and ``collate_topdown``, the
 ImageNet dataset and ``collate_classification``, the MPII reader and joint
 layout, the loader, directory and video datasets."""
 
@@ -22,6 +23,7 @@ from .coco import (
     get_coco_joints,
     prebake_annotations,
 )
+from .coco_topdown import CocoTopDownDataset, collate_topdown
 from .imagenet import ImagenetClassificationDataset, collate_classification
 from .loader import DataLoader
 from .mpii import MPII_FLIP_INDEX, MPII_LABELS, MPII_LIMBS, MpiiKeypointsDataset
@@ -50,6 +52,7 @@ __all__ = [
     "COCO_LIMBS",
     "ClassificationTransform",
     "CocoKeypointsDataset",
+    "CocoTopDownDataset",
     "ComposeKeypointsTransform",
     "DataLoader",
     "DirectoryDataset",
@@ -71,6 +74,7 @@ __all__ = [
     "affine_transform_point",
     "center_crop",
     "collate",
+    "collate_topdown",
     "collate_classification",
     "get_affine_transform",
     "get_aug_affine_matrix",

@@ -290,17 +290,24 @@ class HRNetBackbone(nn.Module):
 
 
 class HRNetSPPE(nn.Module):
-    """Single-person HRNet head (reference hrnet.py:388-400): the backbone's
-    single 1/4-scale output, a biased 1x1 ``final_conv`` and a softmax over
-    the keypoint (channel) dim, in float32 whatever the compute dtype.
-    Returns a list of one stage. Built on ``device`` (default ``"cuda"``:
-    raises when no card is present)."""
+    """Single-person HRNet (pose_hrnet, Sun et al. 2019): the backbone's
+    single 1/4-scale output and a biased 1x1 ``final_conv`` to the keypoint
+    heatmaps, in float32 whatever the compute dtype, under the span
+    ``net.head``. Returns a list of one stage.
+
+    ``heatmap_softmax`` (the default, the JAX package's and the thawro
+    reference's head, hrnet.py:388-400) ends in a softmax over the keypoint
+    (channel) dim; off, the heatmaps are the 1x1 conv's output as
+    published, which ``train/losses.py::joints_mse_loss`` trains against
+    Gaussians on a zero background. Built on ``device`` (default
+    ``"cuda"``: raises when no card is present)."""
 
     def __init__(self, num_keypoints: int = 17, C: int = 32,
                  num_blocks_per_stage: Sequence[int] = (1, 1, 4, 3), num_units: int = 4,
-                 device: str | torch.device = "cuda"):
+                 heatmap_softmax: bool = True, device: str | torch.device = "cuda"):
         super().__init__()
         dev = resolve_device(device)
+        self.heatmap_softmax = heatmap_softmax
         self.backbone = HRNetBackbone(C, final_stage_single_scale=True,
                                       num_blocks_per_stage=num_blocks_per_stage,
                                       num_units=num_units)
@@ -308,5 +315,7 @@ class HRNetSPPE(nn.Module):
         self.to(dev)
 
     def forward(self, images: torch.Tensor) -> list:
-        hms = self.final_conv(self.backbone(images)[0]).float()
-        return [torch.softmax(hms, dim=1)]
+        feats = self.backbone(images)[0]
+        with span("net.head"):
+            hms = self.final_conv(feats).float()
+            return [torch.softmax(hms, dim=1) if self.heatmap_softmax else hms]

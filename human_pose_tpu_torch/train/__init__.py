@@ -1,5 +1,5 @@
-"""Training (port of human_pose_tpu/train/): the classification and pose
-losses, the train state, the optimizers and schedulers, the train,
+"""Training (port of human_pose_tpu/train/): the classification, pose and
+top-down losses, the train state, the optimizers and schedulers, the train,
 validation and gradient-accumulation steps of both tasks, the task modules
 (``ClassificationModule``, ``KeypointsModule``), the device prefetch, and
 the engine: ``Trainer`` and ``DataModule``, the callbacks, checkpoints,
@@ -28,6 +28,7 @@ from .checkpoint import (
 )
 from .losses import (
     TAG_LOSS_WEIGHT, ae_grouping_loss, ae_keypoints_loss, classification_loss, heatmaps_loss,
+    joints_mse_loss,
 )
 from .meters import AverageMeter, Meters
 from .module import BaseModule, ClassificationModule, KeypointsModule, metrics_to_host
@@ -36,8 +37,8 @@ from .prefetch import DeviceBatch, DevicePrefetcher, host_batch_to_device
 from .state import TrainState
 from .steps import (
     accumulated_classification_train_step, accumulated_keypoints_train_step,
-    classification_train_step, classification_val_step, keypoints_train_step, keypoints_val_step,
-    topk_error,
+    accumulated_sppe_train_step, classification_train_step, classification_val_step,
+    keypoints_train_step, keypoints_val_step, sppe_train_step, sppe_val_step, topk_error,
 )
 from .storage import MetricsStorage, SystemMonitoringStorage
 from .trainer import DataModule, Trainer
@@ -48,6 +49,7 @@ __all__ = [
     "heatmaps_loss",
     "ae_grouping_loss",
     "ae_keypoints_loss",
+    "joints_mse_loss",
     "TAG_LOSS_WEIGHT",
     "create_optimizer",
     "create_lr_scheduler",
@@ -55,11 +57,14 @@ __all__ = [
     "LRScheduler",
     "accumulated_classification_train_step",
     "accumulated_keypoints_train_step",
+    "accumulated_sppe_train_step",
     "classification_train_step",
     "classification_val_step",
     "topk_error",
     "keypoints_train_step",
     "keypoints_val_step",
+    "sppe_train_step",
+    "sppe_val_step",
     "BaseModule",
     "ClassificationModule",
     "KeypointsModule",

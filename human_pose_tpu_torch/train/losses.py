@@ -12,6 +12,9 @@
   visible joint are skipped, and the batch mean counts empty samples.
 * ``ae_keypoints_loss``: the heatmap losses of every stage plus
   ``TAG_LOSS_WEIGHT * (push + pull)``.
+* ``joints_mse_loss``: the top-down nets' target-weighted joints MSE
+  (pose_hrnet's ``JointsMSELoss(use_target_weight=True)``), summed over
+  the stages of a list.
 
 Joints are ``[N, P, K, 3]`` int32 ``(x, y, vis)`` at 1/4-resolution
 coordinates, padded with vis 0. Every loss is float32.
@@ -90,4 +93,22 @@ def ae_keypoints_loss(stages_pred_heatmaps: list, pred_tags: torch.Tensor,
     total = sum(hm_losses) + push + pull
     metrics = {f"hm_{i}": loss for i, loss in enumerate(hm_losses)}
     metrics.update({"push": push, "pull": pull, "loss": total})
+    return total, metrics
+
+
+def joints_mse_loss(stages_pred_heatmaps: list, target: torch.Tensor,
+                    target_weight: torch.Tensor):
+    """The top-down loss: for each stage ``[N, K, h, w]`` of the list,
+    ``0.5 * mean((w * pred - w * target)^2)`` over N, K and the pixels, with
+    ``target`` ``[N, K, h, w]`` (Gaussians on a zero background) and the
+    joints' ``target_weight`` ``[N, K]`` (0 for a joint that is not
+    labelled in the map: it contributes nothing); summed over the stages
+    (intermediate supervision). Returns ``(total, metrics)``: ``hm_{i}`` a
+    stage and ``loss``."""
+    w = target_weight.float()[:, :, None, None]
+    wt = target.float() * w
+    hm_losses = [0.5 * ((p.float() * w - wt) ** 2).mean() for p in stages_pred_heatmaps]
+    total = sum(hm_losses)
+    metrics = {f"hm_{i}": loss for i, loss in enumerate(hm_losses)}
+    metrics["loss"] = total
     return total, metrics

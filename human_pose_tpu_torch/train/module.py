@@ -36,12 +36,14 @@ from .prefetch import DeviceBatch, host_batch_to_device
 from .state import TrainState
 from .steps import (
     accumulated_classification_train_step, accumulated_keypoints_train_step,
-    classification_train_step, classification_val_step, keypoints_train_step, keypoints_val_step,
+    accumulated_sppe_train_step, classification_train_step, classification_val_step,
+    keypoints_train_step, keypoints_val_step, sppe_train_step, sppe_val_step,
 )
 
 # the JAX package's val-time decode thresholds (reference keypoints/module.py:95-99)
 VAL_DET_THR, VAL_TAG_THR = 0.1, 1.0
-# the SPPE nets: KeypointsModule's loss takes (heatmap stages, tags)
+# the top-down (SPPE) nets: a list of heatmap stages and no tags, trained
+# on person crops by the joints MSE (``steps.sppe_train_step``)
 SINGLE_OUTPUT_NETS = (HourglassNet, HRNetSPPE, SimpleBaseline)
 
 
@@ -201,13 +203,9 @@ class KeypointsModule(BaseModule):
                **kw) -> "KeypointsModule":
         """Adam at lr 1e-3 unless the dicts say otherwise; the keypoints init
         (``init_keypoints_weights_``). A net with one output (the SPPE
-        models: heatmap stages, no tags) raises, as JAX's step cannot train
-        it."""
-        if isinstance(model, SINGLE_OUTPUT_NETS):
-            raise NotImplementedError(
-                f"{type(model).__name__} has a single output (a list of heatmap stages, no "
-                "tags): the JAX package's KeypointsModule cannot train it either (its step "
-                "unpacks (stages, tags), human_pose_tpu/train/steps.py:109)")
+        models: heatmap stages, no tags) trains through the top-down steps
+        on batches of person crops; the JAX package's module cannot train
+        it (its step unpacks ``(stages, tags)``)."""
         return super().create(
             model,
             optimizers_cfg or {"optim": {"name": "Adam", "params": {"lr": 1e-3}}},
@@ -215,45 +213,64 @@ class KeypointsModule(BaseModule):
             seed=seed, init_weights=init_keypoints_weights_, mesh=mesh, **kw,
         )
 
+    @property
+    def top_down(self) -> bool:
+        """A single-output net: trained on crops by the joints MSE."""
+        return isinstance(self.model, SINGLE_OUTPUT_NETS)
+
     def training_step(self, batch: dict) -> dict:
         batch = self.batch_to_device(batch)
-        if self.accumulate_grad_batches > 1:
-            step = accumulated_keypoints_train_step(self.accumulate_grad_batches)
+        n = self.accumulate_grad_batches
+        if self.top_down:
+            step = accumulated_sppe_train_step(n) if n > 1 else sppe_train_step
         else:
-            step = keypoints_train_step
+            step = accumulated_keypoints_train_step(n) if n > 1 else keypoints_train_step
         self.state, metrics = step(self.state, batch, self.lr)
         self.on_step_end()
         return metrics
 
     def validation_step(self, batch: dict):
         batch = self.batch_to_device(batch)
-        metrics, outputs = keypoints_val_step(self.state, batch)
+        val_step = sppe_val_step if self.top_down else keypoints_val_step
+        metrics, outputs = val_step(self.state, batch)
         return metrics, outputs
 
     def make_results(self, batch: dict, outputs, max_results: int = 4) -> list:
         """Decode one val batch into plottable results at the val-time
         thresholds (det 0.1, tag 1.0) through the port's ``decode_batch``
-        (on a card: its refine and grouping kernels, one launch each).
-        ``batch`` is the host batch the val step took (channel-last) or a
-        ``DeviceBatch`` (NCHW)."""
+        (on a card: its refine and grouping kernels, one launch each); a
+        top-down net's crops by the argmax of each joint (``sppe_parse``),
+        one person a crop. ``batch`` is the host batch the val step took
+        (channel-last) or a ``DeviceBatch`` (NCHW)."""
         from ..inference.results import KeypointsResult
         from ..ops.decode import decode_batch
         from ..ops.heatmaps import average_stages, resize_bilinear
+        from ..ops.sppe import sppe_parse
 
-        stages_hms, tags = outputs
+        stages_hms, tags = (outputs, None) if self.top_down else outputs
         n = min(max_results, stages_hms[0].shape[0])
         stages_hms = [h[:n].float() for h in stages_hms]
-        tags = tags[:n].float()
         images = batch["images"]
         if isinstance(batch, DeviceBatch):
             images = images.permute(0, 2, 3, 1)
         images = images.cpu().numpy() if torch.is_tensor(images) else np.asarray(images)
         h, w = images.shape[1:3]
+        avg = resize_bilinear(average_stages(stages_hms), h, w)
+        if self.top_down:
+            joints = sppe_parse(avg).cpu().numpy()  # [n, 1, K, 3]
+            avg = avg.permute(0, 2, 3, 1).cpu().numpy()
+            return [KeypointsResult(
+                model_input_image=images[i], kpts_heatmaps=avg[i],
+                tags_heatmaps=np.zeros_like(avg[i]), kpts_coords=joints[i][..., :2],
+                kpts_scores=joints[i][..., 2], kpts_tags=np.zeros_like(joints[i][..., 2:]),
+                obj_scores=joints[i][..., 2].mean(-1), det_thr=VAL_DET_THR)
+                for i in range(n)]
+        tags = tags[:n].float()
         joints, scores, valid = decode_batch(
             stages_hms, [tags], input_hw=(h, w), max_num_people=batch["joints"].shape[1],
             det_thr=VAL_DET_THR, tag_thr=VAL_TAG_THR,
         )
-        avg = resize_bilinear(average_stages(stages_hms), h, w).permute(0, 2, 3, 1).cpu().numpy()
+        avg = avg.permute(0, 2, 3, 1).cpu().numpy()
         tags_big = resize_bilinear(tags, h, w).permute(0, 2, 3, 1).cpu().numpy()
         joints, scores, valid = joints.cpu().numpy(), scores.cpu().numpy(), valid.cpu().numpy()
         results = []

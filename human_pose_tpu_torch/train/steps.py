@@ -28,6 +28,10 @@ the space group (``gather_rows``).
 * keypoints: batch ``images`` as above, ``heatmaps`` a list of
   ``[N, K, h, w]`` per stage, ``masks`` a list of ``[N, h, w]``, ``joints``
   ``[N, P, K, 3]`` int32 at 1/4-resolution coordinates, padded with vis 0.
+* top-down (the single-output nets: ``HRNetSPPE``, ``SimpleBaseline``,
+  ``HourglassNet``): batch ``images`` of person crops as above,
+  ``heatmaps`` ``[N, K, h, w]`` (every stage's target) and
+  ``target_weight`` ``[N, K]``; the target-weighted joints MSE.
 """
 
 from __future__ import annotations
@@ -41,13 +45,14 @@ from ..ops.images import prep_images
 from ..parallel.mesh import all_reduce_mean_, average_gradients_, average_running_stats_
 from ..parallel.spatial import gather_rows
 from ..utils.profiling import span
-from .losses import ae_keypoints_loss, classification_loss
+from .losses import ae_keypoints_loss, classification_loss, joints_mse_loss
 from .optim import set_learning_rate
 from .state import TrainState
 
 __all__ = ["accumulated_classification_train_step", "accumulated_keypoints_train_step",
-           "classification_train_step", "classification_val_step", "keypoints_train_step",
-           "keypoints_val_step", "topk_error"]
+           "accumulated_sppe_train_step", "classification_train_step", "classification_val_step",
+           "keypoints_train_step", "keypoints_val_step", "sppe_train_step", "sppe_val_step",
+           "topk_error"]
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -192,6 +197,48 @@ def keypoints_val_step(state: TrainState, batch: dict):
     return metrics, out
 
 
+# -- top-down ---------------------------------------------------------------------------
+
+def _sppe_losses(out: list, batch: dict):
+    return joints_mse_loss(out, batch["heatmaps"], batch["target_weight"])
+
+
+def _sppe_backward(state: TrainState, batch: dict) -> dict:
+    """Forward in train mode, the joints MSE and backward for one
+    (micro)batch of crops; the gradients add into ``.grad``. Returns the
+    detached metrics."""
+    state.model.train()
+    with span("train.forward"), _compute(state):
+        out = state.model(prep_images(batch["images"]))
+    with span("train.loss"):
+        total, metrics = _sppe_losses(out, batch)
+    with span("train.backward"):
+        total.backward()
+    return {key: value.detach() for key, value in metrics.items()}
+
+
+def sppe_train_step(state: TrainState, batch: dict, lr):
+    """One update of a single-output net on a batch of crops. Returns
+    ``(state, metrics)``: metrics ``hm_{i}`` a stage and ``loss``."""
+    batch = _to_device(batch, state.device)
+    state.optimizer.zero_grad(set_to_none=True)
+    metrics = _sppe_backward(state, batch)
+    _update(state, lr)
+    return state, _global_metrics(state, metrics)
+
+
+@torch.no_grad()
+def sppe_val_step(state: TrainState, batch: dict):
+    """Eval-mode forward and the joints MSE. Returns ``(metrics, out)`` with
+    ``out`` the model's list of heatmap stages."""
+    batch = _to_device(batch, state.device)
+    state.model.eval()
+    with _compute(state):
+        out = state.model(prep_images(batch["images"]))
+    _, metrics = _sppe_losses(out, batch)
+    return metrics, out
+
+
 def _split_micro(batch: dict, n_micro: int) -> list:
     """``batch`` as ``n_micro`` consecutive microbatches along dim 0."""
     def split(x):
@@ -233,5 +280,16 @@ def accumulated_keypoints_train_step(n_micro: int):
     def step(state: TrainState, batch: dict, lr):
         micro = _split_micro(_to_device(batch, state.device), n_micro)
         return _accumulated(state, micro, _keypoints_backward, lr)
+
+    return step
+
+
+def accumulated_sppe_train_step(n_micro: int):
+    """A top-down step averaging the gradients of ``n_micro`` microbatches
+    (see ``accumulated_keypoints_train_step``)."""
+
+    def step(state: TrainState, batch: dict, lr):
+        micro = _split_micro(_to_device(batch, state.device), n_micro)
+        return _accumulated(state, micro, _sppe_backward, lr)
 
     return step

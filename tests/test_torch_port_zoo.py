@@ -393,7 +393,8 @@ def test_configs_build_every_architecture(arch):
     ``net.params`` JAX's config gives the module of the full-size tree test
     and the port's the same parameter count; ``create_inference_model``
     gives the SPPE model to HRNet and SimpleBaseline and the AE model
-    otherwise (a tiny net, float32 on the CPU), which runs an image."""
+    otherwise (a tiny net, float32 on the CPU), which runs an image; the
+    SPPE nets' module takes a top-down step on a host batch of crops."""
     make_jax, count, tiny = CONFIG_NETS[arch]
     cfg = {"setup": {"architecture": arch}, "trainer": {"accelerator": "cpu"},
            "inference": {"input_size": 64}}
@@ -408,9 +409,14 @@ def test_configs_build_every_architecture(arch):
     assert not im.model.training
     assert im(_raw(70, 90, 9)).kpts_coords.shape[1:] == (17, 2)
     train_cfg = KeypointsConfig.from_dict({**cfg, "net": {"params": tiny}})
-    if sppe:  # a single output: JAX's KeypointsModule cannot train it either
-        with pytest.raises(NotImplementedError, match="single output"):
-            train_cfg.create_module()
+    if sppe:  # a single output, which JAX's KeypointsModule cannot train: the top-down step
+        module = train_cfg.create_module()
+        g = torch.Generator().manual_seed(0)
+        metrics = module.training_step({
+            "images": torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8, generator=g),
+            "heatmaps": torch.rand(2, 16, 16, 17, generator=g),
+            "target_weight": torch.ones(2, 17)})
+        assert module.top_down and module.state.step == 1 and bool(torch.isfinite(metrics["loss"]))
     elif arch == "Hourglass":  # two stages at 1/4: the default [0.25, 0.5] targets refuse
         with pytest.raises(ValueError, match="hm_resolutions"):
             KeypointsConfig.from_dict(cfg).check_trainable()

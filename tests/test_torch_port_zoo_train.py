@@ -15,8 +15,9 @@ term, the BatchNorm running statistics and the parameters after the update,
 under the rules of the HigherHRNet step (``tests/test_torch_port_train.py``);
 the gradients of both against a float64 evaluation of the same net. The bf16 step, the config's module
 (``architecture: Hourglass``, ``hm_resolutions [0.25, 0.25]``) through a
-step, a validation and ``make_results``, and the refusals: the
-single-output nets, and targets that do not match the stages.
+step, a validation and ``make_results``; the single-output nets through
+the top-down step, and the refusal of targets that do not match the
+stages.
 """
 
 from __future__ import annotations
@@ -331,31 +332,55 @@ def test_config_trains_the_ae_hourglass():
         assert r.kpts_coords.shape[1:] == (K, 2) and r.det_thr == 0.1
 
 
-@pytest.mark.parametrize("make", [
-    lambda: SimpleBaseline(K, "resnet18", device="meta"),
-    lambda: HRNetSPPE(K, C=8, num_blocks_per_stage=(1, 1, 1, 1), num_units=1, device="meta"),
-    lambda: HourglassNet(16, 1, device="meta"),
+def _crops(k: int, s: int = 64) -> DeviceBatch:
+    """A top-down batch of two uint8 crops of ``s``x``s``, targets at 1/4
+    and the joints' weights (one joint unlabelled)."""
+    g = torch.Generator().manual_seed(0)
+    weight = torch.ones(N, k)
+    weight[0, 0] = 0.0
+    return DeviceBatch({
+        "images": torch.randint(0, 256, (N, 3, s, s), dtype=torch.uint8, generator=g),
+        "heatmaps": torch.rand(N, k, s // 4, s // 4, generator=g), "target_weight": weight})
+
+
+def _trains_one_step(module, k: int) -> None:
+    """``module`` takes one top-down step (the joints MSE of each stage, the
+    parameters move) and validates the batch."""
+    batch = _crops(k)
+    before = [p.detach().clone() for p in module.model.parameters()]
+    metrics = module.training_step(batch)
+    assert module.top_down and "loss" in metrics and "hm_0" in metrics
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert any(not torch.equal(p, b) for p, b in zip(module.model.parameters(), before))
+    val_metrics, stages = module.validation_step(batch)
+    assert set(val_metrics) == set(metrics) and stages[0].shape == (N, k, 16, 16)
+
+
+@pytest.mark.parametrize("make,k", [
+    (lambda: SimpleBaseline(K, "resnet18", device="cpu"), K),
+    (lambda: HRNetSPPE(K, C=8, num_blocks_per_stage=(1, 1, 1, 1), num_units=1,
+                       heatmap_softmax=False, device="cpu"), K),
+    (lambda: HourglassNet(16, 1, device="cpu"), 16),
 ], ids=["SimpleBaseline", "HRNetSPPE", "HourglassNet"])
-def test_single_output_nets_refuse_to_train(make):
+def test_single_output_nets_refuse_to_train(make, k):
     """The SPPE nets return a list of heatmap stages and no tags: the JAX
     package's ``KeypointsModule`` cannot train them (its step unpacks
-    ``(stages, tags)``, human_pose_tpu/train/steps.py:109), and the port
-    refuses them with that reason."""
-    with torch.device("meta"):
-        net = make()
-    with pytest.raises(NotImplementedError, match="single output.*steps.py:109"):
-        KeypointsModule.create(net)
+    ``(stages, tags)``, human_pose_tpu/train/steps.py:109); the port's
+    trains them through the top-down step (``steps.sppe_train_step``, the
+    target-weighted joints MSE) on batches of crops."""
+    _trains_one_step(KeypointsModule.create(make()), k)
 
 
 @pytest.mark.parametrize("arch", ["SimpleBaseline", "HRNet"])
 def test_config_refuses_single_output_architectures(arch):
-    """The config's ``create_module`` refuses them through
-    ``KeypointsModule.create``, with the same reason (the nets built on
-    the meta device); their targets are not checked against stages."""
-    cfg = _config(arch, hm=(0.25,))
+    """The config's ``create_module`` builds them (tiny nets on the CPU)
+    as top-down modules, their one stage at 1/4, and they train a step."""
+    tiny = ({"backbone": "resnet18"} if arch == "SimpleBaseline"
+            else {"C": 8, "num_blocks_per_stage": [1, 1, 1, 1], "num_units": 1})
+    cfg = _config(arch, hm=(0.25,), **tiny)
     cfg.check_trainable()
-    with pytest.raises(NotImplementedError, match="single output.*steps.py:109"):
-        cfg.create_module(device="meta")
+    assert cfg.stage_resolutions() == (0.25,)
+    _trains_one_step(cfg.create_module(), K)
 
 
 @pytest.mark.parametrize("hm", [(0.25, 0.5), (0.5, 0.25)])
